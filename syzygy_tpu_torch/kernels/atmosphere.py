@@ -1,0 +1,421 @@
+"""Hillaire atmospheric scattering: LUT construction and sampling.
+
+Port of ``syzygy_tpu/kernels/atmosphere.py`` (``atmosphere/common.glinl``,
+``transmittance_LUT.comp``, ``skyview_LUT.comp``), keeping the reference's
+quirks: ``sampleExtinction`` uses the Rayleigh absorption for the Mie term
+(``common.glinl:202``) and ``stepRadiusMu`` takes ``safeSqrt`` of a
+difference (``common.glinl:325``). Units: megameters, +y up.
+
+LUTs are stored plain (``(H, W, C)`` f32, or the q8 sky-view form); the
+TPU's quad packing (one gather per bilinear footprint) is a gather layout
+that does not change values and is not carried over.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from syzygy_tpu_torch.math.geometry import sqrt_rn, vec_norm
+from syzygy_tpu_torch.scene.atmosphere import AtmospherePacked
+
+F32 = torch.float32
+TRANSMITTANCE_SAMPLES = 500  # transmittance_LUT.comp:53
+SKYVIEW_SAMPLES = 32  # common.glinl:363
+METERS_PER_MM = 1_000_000.0
+PI = 3.141592653589793
+_TRANSMITTANCE_STEP_BLOCK = 50  # optical-depth steps evaluated per tensor op
+
+
+def safe_sqrt(x):
+    return sqrt_rn(torch.clamp(x, min=0.0))
+
+
+def _norm(v):
+    return sqrt_rn(torch.clamp(torch.sum(v * v, dim=-1, keepdim=True), min=1e-20))
+
+
+def tex_coord_from_unit_range(value, dim: int):
+    """``textureCoordFromUnitRange`` (``common.glinl:29-32``)."""
+    return 0.5 / dim + value * (1.0 - 1.0 / dim)
+
+
+def unit_range_from_tex_coord(coord, dim: int):
+    return (coord - 0.5 / dim) / (1.0 - 1.0 / dim)
+
+
+def transmittance_rmu_to_uv(atmo: AtmospherePacked, radius, mu, width: int, height: int):
+    """``transmittanceLUT_RMu_to_UV`` (``common.glinl:40-66``); the half-texel
+    insets follow the LUT dims."""
+    atm_r2 = atmo.atmosphere_radius_mm * atmo.atmosphere_radius_mm
+    pl_r2 = atmo.planet_radius_mm * atmo.planet_radius_mm
+    h = safe_sqrt(atm_r2 - pl_r2)
+    rho = safe_sqrt(radius * radius - pl_r2)
+    d = torch.clamp(
+        -radius * mu + safe_sqrt(radius * radius * (mu * mu - 1.0) + atm_r2), min=0.0
+    )
+    d_min = atmo.atmosphere_radius_mm - radius
+    d_max = rho + h
+    x_mu = (d - d_min) / torch.clamp(d_max - d_min, min=1e-12)
+    x_radius = rho / torch.clamp(h, min=1e-12)
+    return tex_coord_from_unit_range(x_mu, width), tex_coord_from_unit_range(x_radius, height)
+
+
+def transmittance_uv_to_rmu(atmo: AtmospherePacked, u, v, width: int, height: int):
+    """``transmittanceLUT_UV_to_RMu`` (``common.glinl:69-102``)."""
+    x_mu = unit_range_from_tex_coord(u, width)
+    x_radius = unit_range_from_tex_coord(v, height)
+    atm_r2 = atmo.atmosphere_radius_mm * atmo.atmosphere_radius_mm
+    pl_r2 = atmo.planet_radius_mm * atmo.planet_radius_mm
+    h = safe_sqrt(atm_r2 - pl_r2)
+    rho = h * x_radius
+    radius = sqrt_rn(rho * rho + pl_r2)
+    d_min = atmo.atmosphere_radius_mm - radius
+    d_max = rho + h
+    d = (d_max - d_min) * x_mu + d_min
+    mu = (h * h - rho * rho - d * d) / (2.0 * radius * torch.clamp(d, min=1e-12))
+    mu = torch.clamp(mu, -1.0, 1.0)
+    return radius, torch.where(d <= 0.0, 1.0, mu)
+
+
+class LUTQ8(NamedTuple):
+    """u8 block-scaled LUT (``pack_lut_q8``, ``atmosphere.py:181-201``):
+    each texel's clamped 2x2 bilinear footprint quantized to u8 fractions
+    of the footprint's own max. Stored decoded-ready: ``q`` (H, W, 12) u8
+    and ``scale`` (H, W) f32."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+def _footprint(lut: torch.Tensor) -> torch.Tensor:
+    """(H, W, C) -> (H, W, 4C): [t(y,x), t(y,x1), t(y1,x), t(y1,x1)],
+    x1/y1 edge-clamped."""
+    h, w = lut.shape[0], lut.shape[1]
+    xr = torch.clamp(torch.arange(w, device=lut.device) + 1, max=w - 1)
+    yd = torch.clamp(torch.arange(h, device=lut.device) + 1, max=h - 1)
+    return torch.cat([lut, lut[:, xr], lut[yd], lut[yd][:, xr]], dim=-1)
+
+
+def pack_lut_q8(lut: torch.Tensor) -> LUTQ8:
+    """(H, W, 3) -> :class:`LUTQ8`. ``torch.round`` rounds half to even,
+    as ``jnp.round`` does, so the u8 codes agree with the reference's."""
+    quad = _footprint(lut)
+    scale = torch.amax(quad, dim=-1, keepdim=True)
+    q = torch.clamp(torch.round(quad / torch.clamp(scale, min=1e-30) * 255.0), 0.0, 255.0)
+    return LUTQ8(q.to(torch.uint8), scale[..., 0])
+
+
+def sample_lut_bilinear(lut, u, v):
+    """Bilinear clamp-to-edge sample (GLSL ``texture()``) of an (H, W, C)
+    LUT (any float dtype; filtered in f32) or a :class:`LUTQ8`."""
+    if isinstance(lut, LUTQ8):
+        h, w = lut.scale.shape
+    else:
+        h, w = lut.shape[0], lut.shape[1]
+    x = torch.clamp(u * w - 0.5, 0.0, w - 1.0)
+    y = torch.clamp(v * h - 0.5, 0.0, h - 1.0)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    if isinstance(lut, LUTQ8):
+        scale = (lut.scale[y0, x0] * (1.0 / 255.0))[..., None]
+        q = lut.q[y0, x0].to(F32) * scale  # (..., 12)
+        top = q[..., 0:3] * (1 - fx) + q[..., 3:6] * fx
+        bot = q[..., 6:9] * (1 - fx) + q[..., 9:12] * fx
+        return top * (1 - fy) + bot * fy
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    top = lut[y0, x0].to(F32) * (1 - fx) + lut[y0, x1].to(F32) * fx
+    bot = lut[y1, x0].to(F32) * (1 - fx) + lut[y1, x1].to(F32) * fx
+    return top * (1 - fy) + bot * fy
+
+
+def sample_transmittance_rmu(lut, atmo, radius, mu):
+    h, w = lut.shape[0], lut.shape[1]
+    u, v = transmittance_rmu_to_uv(atmo, radius, mu, w, h)
+    return sample_lut_bilinear(lut, u, v)
+
+
+def sample_transmittance_ray(lut, atmo, position, direction):
+    """``sampleTransmittanceLUT_Ray`` (``common.glinl:104-112``)."""
+    radius = _norm(position)[..., 0]
+    mu = torch.sum(position * direction, dim=-1) / (radius * _norm(direction)[..., 0])
+    return sample_transmittance_rmu(lut, atmo, radius, mu)
+
+
+def sample_transmittance_segment(lut, atmo, p_from, p_to):
+    """``sampleTransmittanceLUT_Segment`` (``common.glinl:114-136``) with the
+    direction-flip trick for precision near the horizon."""
+    direction = (p_to - p_from) / _norm(p_to - p_from)
+    flip = torch.sum(p_from * direction, dim=-1, keepdim=True) < 0.0
+    a = torch.where(flip, p_to, p_from)
+    b = torch.where(flip, p_from, p_to)
+    d = torch.where(flip, -direction, direction)
+    transmittance = sample_transmittance_ray(lut, atmo, a, d) / torch.clamp(
+        sample_transmittance_ray(lut, atmo, b, d), min=1e-20
+    )
+    return torch.clamp(transmittance, 0.0, 1.0)
+
+
+def sample_transmittance_sun(lut, atmo, radius, cos_sun_zenith):
+    """``sampleTransmittanceLUT_Sun`` (``common.glinl:145-172``)."""
+    sin_sun_radius = torch.sin(atmo.sun_angular_radius)
+    cos_sun_radius = torch.cos(atmo.sun_angular_radius)
+    sin_horizon = atmo.planet_radius_mm / radius
+    cos_horizon = -safe_sqrt(1.0 - sin_horizon * sin_horizon)
+    through = sample_transmittance_rmu(lut, atmo, radius, cos_sun_zenith)
+    edge0 = -sin_horizon * sin_sun_radius
+    edge1 = sin_horizon * sin_sun_radius
+    x = cos_sun_zenith - cos_horizon * cos_sun_radius
+    t = torch.clamp((x - edge0) / torch.clamp(edge1 - edge0, min=1e-12), 0.0, 1.0)
+    return through * (t * t * (3.0 - 2.0 * t))[..., None]
+
+
+class ExtinctionSample(NamedTuple):
+    scattering_rayleigh: torch.Tensor
+    scattering_mie: torch.Tensor
+    extinction: torch.Tensor
+
+
+def sample_extinction(atmo: AtmospherePacked, altitude_mm) -> ExtinctionSample:
+    """``sampleExtinction`` (``common.glinl:194-216``), keeping the
+    absorptionRayleigh-for-Mie slip; altitude clamps at -1 km (the
+    reference's robustness deviation)."""
+    alt = torch.clamp(altitude_mm, min=-0.001)[..., None]
+    density_rayleigh = torch.exp(-alt / atmo.density_scale_rayleigh_mm)
+    scattering_rayleigh = atmo.scattering_rayleigh_per_mm * density_rayleigh
+    absorption_rayleigh = atmo.absorption_rayleigh_per_mm * density_rayleigh
+    density_mie = torch.exp(-alt / atmo.density_scale_mie_mm)
+    scattering_mie = atmo.scattering_mie_per_mm * density_mie
+    absorption_mie = atmo.absorption_rayleigh_per_mm * density_mie  # reference quirk
+    altitude_km = altitude_mm * 1000.0
+    density_ozone = torch.clamp(1.0 - torch.abs(altitude_km - 25.0) / 15.0, min=0.0)[..., None]
+    scattering_ozone = atmo.scattering_ozone_per_mm * density_ozone
+    absorption_ozone = atmo.absorption_ozone_per_mm * density_ozone
+    extinction = (
+        scattering_rayleigh
+        + absorption_rayleigh
+        + scattering_mie
+        + absorption_mie
+        + scattering_ozone
+        + absorption_ozone
+    )
+    return ExtinctionSample(scattering_rayleigh, scattering_mie, extinction)
+
+
+def ray_sphere_intersect(origin, direction, radius):
+    """``raySphereIntersection`` (``common.glinl:220-260``) -> (hit, t0, t1),
+    t0 <= t1, both 0 on a miss."""
+    b = -torch.sum(origin * direction, dim=-1)
+    chord = origin + b[..., None] * direction
+    discriminant = radius * radius - torch.sum(chord * chord, dim=-1)
+    c = torch.sum(origin * origin, dim=-1) - radius * radius
+    hit = discriminant >= 0.0
+    sq = safe_sqrt(discriminant)
+    q = torch.where(b < 0.0, b - sq, b + sq)
+    t0 = c / torch.where(torch.abs(q) < 1e-12, 1e-12, q)
+    lo = torch.minimum(t0, q)
+    hi = torch.maximum(t0, q)
+    return hit, torch.where(hit, lo, 0.0), torch.where(hit, hi, 0.0)
+
+
+def phase_rayleigh(cosine):
+    return 3.0 / (16.0 * PI) * (1.0 + cosine * cosine)
+
+
+def phase_mie(cosine, g=0.8):
+    num = (1.0 - g * g) * (1.0 + cosine * cosine)
+    den = (2.0 + g * g) * torch.pow(torch.clamp(1.0 + g * g - 2.0 * g * cosine, min=1e-12), 1.5)
+    return 3.0 / (8.0 * PI) * num / den
+
+
+def raycast_atmosphere(atmo, origin, direction):
+    """``raycastAtmosphere`` (``common.glinl:284-307``) -> distance through."""
+    hit_a, a0, a1 = ray_sphere_intersect(origin, direction, atmo.atmosphere_radius_mm)
+    hit_atmo = hit_a & (a1 > 0.0)
+    a0 = torch.clamp(a0, min=0.0)
+    hit_p, p0, _ = ray_sphere_intersect(origin, direction, atmo.planet_radius_mm)
+    hit_planet = hit_p & (p0 > 0.0)
+    a1 = torch.where(hit_planet, torch.minimum(p0, a1), a1)
+    return torch.where(hit_atmo, a1 - a0, 0.0)
+
+
+class RaymarchStep(NamedTuple):
+    radius: torch.Tensor
+    mu: torch.Tensor
+    mu_sun: torch.Tensor
+
+
+def step_radius_mu(start: RaymarchStep, step_distance) -> RaymarchStep:
+    """``stepRadiusMu`` (``common.glinl:316-334``)."""
+    mu_sun_step = safe_sqrt(
+        start.mu_sun * start.mu
+        - safe_sqrt((1.0 - start.mu_sun * start.mu_sun) * (1.0 - start.mu * start.mu))
+    )
+    radius = safe_sqrt(
+        step_distance * step_distance
+        + 2.0 * start.radius * start.mu * step_distance
+        + start.radius * start.radius
+    )
+    safe_radius = torch.clamp(radius, min=1e-12)
+    return RaymarchStep(
+        radius=radius,
+        mu=(start.radius * start.mu + step_distance) / safe_radius,
+        mu_sun=(start.radius * start.mu_sun + step_distance * mu_sun_step) / safe_radius,
+    )
+
+
+def _march_setup(atmo, lut, origin, direction, sample_distance):
+    """Per-ray invariants of the 32-step integral: the origin step, the
+    step length, the hoisted origin-side transmittance samples."""
+    scattering_dir = -direction / _norm(direction)
+    radius = _norm(origin)[..., 0]
+    mu = torch.sum(origin * direction, dim=-1) / (radius * _norm(direction)[..., 0])
+    sun = atmo.incident_direction_sun
+    mu_sun = torch.sum(origin * (-sun), dim=-1) / (radius * vec_norm(sun))
+    origin_step = RaymarchStep(radius, mu, mu_sun)
+    up = (origin_step.mu > 0.0)[..., None]
+    t_start_up = sample_transmittance_rmu(lut, atmo, origin_step.radius, origin_step.mu)
+    t_start_dn = sample_transmittance_rmu(lut, atmo, origin_step.radius, -origin_step.mu)
+    return scattering_dir, origin_step, sample_distance / SKYVIEW_SAMPLES, up, t_start_up, t_start_dn
+
+
+def _march_step(atmo, lut, origin, i, scattering_dir, origin_step, d_sample, up, t_start_up, t_start_dn):
+    """One step of ``computeLuminanceScatteringIntegral``: (extinction
+    sample, t_sun, integral, t_begin)."""
+    t = i * d_sample
+    begin = origin - (i * d_sample)[..., None] * scattering_dir
+    end = origin - ((i + 1.0) * d_sample)[..., None] * scattering_dir
+    sample_step = step_radius_mu(origin_step, t)
+    altitude = _norm(begin)[..., 0] - atmo.planet_radius_mm
+    t_sun = sample_transmittance_sun(lut, atmo, sample_step.radius, sample_step.mu_sun)
+    ext = sample_extinction(atmo, altitude)
+    s_end = sample_transmittance_rmu(
+        lut, atmo, sample_step.radius, torch.where(up[..., 0], sample_step.mu, -sample_step.mu)
+    )
+    t_begin = torch.clamp(
+        torch.where(
+            up,
+            t_start_up / torch.clamp(s_end, min=1e-20),
+            s_end / torch.clamp(t_start_dn, min=1e-20),
+        ),
+        0.0,
+        1.0,
+    )
+    t_begin = torch.where((t < 1e-7)[..., None], 1.0, t_begin)
+    t_path = sample_transmittance_segment(lut, atmo, begin, end)
+    integral = (1.0 - t_path) / torch.clamp(ext.extinction, min=1e-12)
+    return ext, t_sun, integral, t_begin
+
+
+def luminance_scattering_integral(atmo, lut, origin, direction, sample_distance):
+    """``computeLuminanceScatteringIntegral`` (``common.glinl:363-424``)
+    with the step-invariant origin-side transmittance hoisted
+    (``atmosphere.py:423-492``)."""
+    setup = _march_setup(atmo, lut, origin, direction, sample_distance)
+    scattering_dir = setup[0]
+    incident_cos = torch.sum(atmo.incident_direction_sun * scattering_dir, dim=-1)
+    phase_r = phase_rayleigh(incident_cos)[..., None]
+    phase_m = phase_mie(incident_cos, 0.8)[..., None]
+    luminance = torch.zeros((*sample_distance.shape, 3), dtype=F32, device=origin.device)
+    for i in range(SKYVIEW_SAMPLES):
+        ext, t_sun, integral, t_begin = _march_step(atmo, lut, origin, float(i), *setup)
+        phase_scat = ext.scattering_rayleigh * phase_r + ext.scattering_mie * phase_m
+        luminance = luminance + phase_scat * t_sun * integral * t_begin
+    return luminance
+
+
+def _scattering_integral_components(atmo, lut, origin, direction, sample_distance):
+    """The integral with the phase functions factored out
+    (``atmosphere.py:615-683``): (A_rayleigh, A_mie)."""
+    setup = _march_setup(atmo, lut, origin, direction, sample_distance)
+    acc_r = torch.zeros((*sample_distance.shape, 3), dtype=F32, device=origin.device)
+    acc_m = torch.zeros_like(acc_r)
+    for i in range(SKYVIEW_SAMPLES):
+        ext, t_sun, integral, t_begin = _march_step(atmo, lut, origin, float(i), *setup)
+        common = t_sun * integral * t_begin
+        acc_r = acc_r + ext.scattering_rayleigh * common
+        acc_m = acc_m + ext.scattering_mie * common
+    return acc_r, acc_m
+
+
+def compute_transmittance_lut(atmo: AtmospherePacked, width: int, height: int):
+    """``transmittance_LUT.comp``: (height, width, 3) f32, 500-step optical
+    depth (``atmosphere.py:572-612``). The steps are evaluated in blocks of
+    50 per tensor op and multiplied in as block products, so the product's
+    association differs from the reference's serial loop at the f32
+    rounding level (inside the 2e-5 LUT class)."""
+    dev = atmo.planet_radius_mm.device
+    u = (torch.arange(width, dtype=F32, device=dev) + 0.5) / width
+    v = (torch.arange(height, dtype=F32, device=dev) + 0.5) / height
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    radius, mu = transmittance_uv_to_rmu(atmo, uu, vv, width, height)
+    zero = torch.zeros_like(radius)
+    origin = torch.stack([zero, radius, zero], dim=-1)
+    direction = torch.stack([safe_sqrt(1.0 - mu * mu), mu, zero], dim=-1)
+    hit, _, distance = ray_sphere_intersect(origin, direction, atmo.atmosphere_radius_mm)
+    dt = torch.abs(distance / TRANSMITTANCE_SAMPLES)[..., None]
+    transmittance = torch.ones((height, width, 3), dtype=F32, device=dev)
+    for start in range(0, TRANSMITTANCE_SAMPLES, _TRANSMITTANCE_STEP_BLOCK):
+        i = torch.arange(start, start + _TRANSMITTANCE_STEP_BLOCK, dtype=F32, device=dev)
+        t = distance[None] * (i[:, None, None] + 0.5) / TRANSMITTANCE_SAMPLES
+        position = origin[None] + t[..., None] * direction[None]
+        altitude = _norm(position)[..., 0] - atmo.planet_radius_mm
+        ext = sample_extinction(atmo, altitude)
+        transmittance = transmittance * torch.prod(torch.exp(-dt[None] * ext.extinction), dim=0)
+    return torch.where(hit[..., None], transmittance, 1.0)
+
+
+def compute_skyview_lut(atmo: AtmospherePacked, origin_mm, transmittance_lut, width: int, height: int):
+    """``skyview_LUT.comp`` in the reference's row-wise form
+    (``atmosphere.py:686-781``): with the origin on the planet-center axis
+    every per-step term depends only on the LUT row (elevation), so the
+    build is ``height`` row integrals plus a per-texel phase combination."""
+    dev = origin_mm.device
+    u = (torch.arange(width, dtype=F32, device=dev) + 0.5) / width
+    v = (torch.arange(height, dtype=F32, device=dev) + 0.5) / height
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+
+    radius = vec_norm(origin_mm)
+    sin_horizon = atmo.planet_radius_mm / radius
+    horizon_zenith = PI - torch.asin(torch.clamp(sin_horizon, -1.0, 1.0))
+
+    # azimuth (skyview_LUT.comp:58-69)
+    cos_view_light = (uu - 0.5) * 2.0
+    sun = atmo.incident_direction_sun
+    light_proj = -torch.stack([sun[0], sun[2]])
+    light_proj = light_proj / torch.clamp(vec_norm(light_proj), min=1e-12)
+    azimuth_sun = torch.asin(torch.clamp(light_proj[0], -1.0, 1.0))
+    azimuth_sun = torch.where(light_proj[1] < 0.0, PI - azimuth_sun, azimuth_sun)
+    azimuth = torch.acos(torch.clamp(cos_view_light, -1.0, 1.0)) + azimuth_sun
+
+    # elevation (skyview_LUT.comp:71-88)
+    unnorm = 2.0 * vv - 1.0
+    view_zenith = torch.where(
+        vv < 0.5,
+        (1.0 - unnorm * unnorm) * horizon_zenith,
+        (PI - horizon_zenith) * (unnorm * unnorm) + horizon_zenith,
+    )
+    elevation = -(view_zenith - PI / 2.0)
+    direction = torch.stack(
+        [
+            torch.sin(azimuth) * torch.cos(elevation),
+            torch.sin(elevation),
+            torch.cos(azimuth) * torch.cos(elevation),
+        ],
+        dim=-1,
+    )
+    elev_row = elevation[:, :1]
+    dir_row = torch.stack(
+        [torch.zeros_like(elev_row), torch.sin(elev_row), torch.cos(elev_row)], dim=-1
+    )  # (h, 1, 3)
+    origin_row = torch.stack([torch.zeros_like(radius), radius, torch.zeros_like(radius)]).expand(
+        dir_row.shape
+    )
+    dist_row = raycast_atmosphere(atmo, origin_row, dir_row)
+    a_r, a_m = _scattering_integral_components(atmo, transmittance_lut, origin_row, dir_row, dist_row)
+    incident_cos = torch.sum(sun * (-direction), dim=-1)
+    return phase_rayleigh(incident_cos)[..., None] * a_r + phase_mie(incident_cos, 0.8)[..., None] * a_m

@@ -1,0 +1,492 @@
+"""Tile-binned software rasterizer: triangle setup, exact binning, raster.
+
+Port of ``syzygy_tpu/kernels/raster.py``. Three parts:
+
+1. :func:`setup_triangles` (torch, vectorized): clip-space corners ->
+   near-plane clip fan (each triangle may split in two: slots t and T+t),
+   screen-space affine barycentric/depth forms and per-slot tile ranges.
+   Same arithmetic as the reference's jitted setup (including its fused
+   multiply-adds), so the coefficient rows agree bitwise.
+2. :func:`bin_triangles` (torch): EXACT per-tile slot lists, ascending
+   slot order within each tile, built from the tile ranges in coefficient
+   columns 10/11 by a count / exclusive-scan / sort. Lists have no
+   capacity, so no triangle is ever dropped and the TPU's overflow
+   fallback raster has no counterpart here.
+3. :func:`rasterize`: the visibility (or depth-only) raster. On a CUDA
+   tensor it launches the hand-written kernel ``csrc/raster.cu``; on a CPU
+   tensor it runs :func:`rasterize_plain`, the same function in torch.
+
+Conventions: screen x right / y down, pixel centers at +0.5, reverse-Z
+(1 near, 0 far), a depth test of ``z >= depth`` in ascending slot order (the
+later slot wins a tie), front faces CW on screen (positive doubled area).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import NamedTuple
+
+import torch
+
+TILE_H = 64
+TILE_W = 128
+CHUNK = 64  # slot-count padding multiple (keeps slot ids equal to the reference's)
+W_CLIP_EPS = 1e-3  # near-plane clip guard in view-z units (w_clip = z_view)
+_TILE_PACK = 4096.0
+_COEFF_WIDTH = 12
+_PLAIN_BATCH = 512  # triangles per vectorized step of rasterize_plain
+
+F32 = torch.float32
+
+
+class TriSetup(NamedTuple):
+    """Screen-space triangle records after near-clip (2T slots, padded to a
+    CHUNK multiple)."""
+
+    # (T2pad, 12) f32: 0:alpha0 1:beta0 2:gamma0 | 3:alpha1 4:beta1
+    # 5:gamma1 | 6:z2 7:dz0 8:dz1 | 9:valid | 10: tx0*4096 + tx1+1 |
+    # 11: ty0*4096 + ty1+1 (the slot's 64x128 tile range, exact in f32)
+    coeffs: torch.Tensor
+    orig_tri: torch.Tensor  # (T2pad,) i32 -> original triangle id
+    corner_bary: torch.Tensor  # (T2pad, 3, 2) corners' (b0, b1) wrt the original
+    corner_w: torch.Tensor  # (T2pad, 3) clip w of the (possibly clipped) corners
+
+
+class VisibilityBuffer(NamedTuple):
+    depth: torch.Tensor  # (H, W) f32, reverse-Z, 0 = background
+    tri: torch.Tensor  # (H, W) i32 slot id, -1 = background (empty if depth-only)
+    b0: torch.Tensor  # (H, W) f32 screen-space barycentric
+    b1: torch.Tensor  # (H, W) f32
+
+
+class TileLists(NamedTuple):
+    """Exact per-tile slot lists: tile i owns ``slots[offsets[i]:offsets[i+1]]``
+    in ascending slot order."""
+
+    slots: torch.Tensor  # (P,) i32
+    offsets: torch.Tensor  # (tiles + 1,) i32
+    tiles_y: int
+    tiles_x: int
+
+
+# ---------------------------------------------------------------------------
+# triangle setup
+# ---------------------------------------------------------------------------
+
+
+def _fma(a, b, c):
+    """f32 fused multiply-add ``a * b + c`` with one rounding (the f32
+    product is exact in float64, the f64 sum is rounded once more to f32).
+
+    The reference's setup and raster run under XLA CPU jit, where LLVM
+    contracts some ``a * b + c`` into fused multiply-adds; the port puts
+    fmas at the same places so coefficient rows and plane evaluations match
+    bitwise, which keeps knife-edge pixels (edges through pixel centers) on
+    the same side. (An f64 sum that lands exactly on an f32 rounding tie
+    can round twice; that is rarer than 1 in 2^29 evaluations.)"""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _rotate_corners(arr: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
+    """Rotate the corner axis (axis 1, size 3) by a per-row amount."""
+    r1 = torch.cat([arr[:, 1:], arr[:, :1]], dim=1)
+    r2 = torch.cat([arr[:, 2:], arr[:, :2]], dim=1)
+    expand = (slice(None),) + (None,) * (arr.ndim - 1)
+    return torch.where((rot == 1)[expand], r1, torch.where((rot == 2)[expand], r2, arr))
+
+
+def _setup_slots(tri_corner_clip, tri_valid, width, height, cull_keep_sign,
+                 depth_bias_constant=0.0, depth_bias_slope=0.0):
+    """Per-slot screen records (``raster.py:101-244``): clip fan, projection,
+    affine forms, screen bboxes. Returns (cols (2T, 14), bary (2T, 3, 2),
+    w (2T, 3))."""
+    dev = tri_corner_clip.device
+    w = tri_corner_clip[..., 3]
+    inside = w >= W_CLIP_EPS
+    n_in = inside.sum(dim=-1)
+    inside_i = inside.to(torch.int32)
+    rot_one = torch.argmax(inside_i, dim=-1)
+    rot_two = torch.argmin(inside_i, dim=-1)
+    rot = torch.where(n_in == 1, rot_one, torch.where(n_in == 2, rot_two, 0))
+
+    v = _rotate_corners(tri_corner_clip, rot)
+    eye_bary = torch.tensor([[1.0, 0.0], [0.0, 1.0], [0.0, 0.0]], dtype=F32, device=dev)
+    vb = _rotate_corners(eye_bary[None].expand(rot.shape[0], 3, 2), rot)
+
+    v0, v1, v2 = v[:, 0], v[:, 1], v[:, 2]
+    b0c, b1c, b2c = vb[:, 0], vb[:, 1], vb[:, 2]
+
+    def lerp_to_plane(pa, pb, ba, bb):
+        den = pb[..., 3] - pa[..., 3]
+        t = (W_CLIP_EPS - pa[..., 3]) / torch.where(torch.abs(den) < 1e-12, 1e-12, den)
+        t = torch.clamp(t, 0.0, 1.0)[..., None]
+        return _fma(t, pb - pa, pa), _fma(t[..., 0:1], bb - ba, ba)
+
+    i01, b01 = lerp_to_plane(v0, v1, b0c, b1c)
+    i02, b02 = lerp_to_plane(v0, v2, b0c, b2c)
+    i20, b20 = lerp_to_plane(v2, v0, b2c, b0c)
+
+    def case_select(three, one, two):
+        return torch.where(
+            (n_in == 3)[:, None, None], three,
+            torch.where((n_in == 1)[:, None, None], one, two),
+        )
+
+    tri_a = case_select(
+        torch.stack([v0, v1, v2], 1), torch.stack([v0, i01, i02], 1), torch.stack([i01, v1, v2], 1)
+    )
+    bary_a = case_select(
+        torch.stack([b0c, b1c, b2c], 1), torch.stack([b0c, b01, b02], 1), torch.stack([b01, b1c, b2c], 1)
+    )
+    tri_b = torch.stack([i01, v2, i20], 1)
+    bary_b = torch.stack([b01, b2c, b20], 1)
+
+    all_tris = torch.cat([tri_a, tri_b], dim=0)
+    all_bary = torch.cat([bary_a, bary_b], dim=0)
+    all_valid = torch.cat([tri_valid & (n_in > 0), tri_valid & (n_in == 2)], dim=0)
+
+    w_all = torch.clamp(all_tris[..., 3], min=W_CLIP_EPS * 0.5)
+    ndc = all_tris[..., :3] / w_all[..., None]
+    sx = (ndc[..., 0] * 0.5 + 0.5) * width  # x * 0.5 is exact: no contraction to mimic
+    sy = (ndc[..., 1] * 0.5 + 0.5) * height
+    sz = ndc[..., 2]
+
+    x0, x1, x2 = sx[:, 0], sx[:, 1], sx[:, 2]
+    y0, y1, y2 = sy[:, 0], sy[:, 1], sy[:, 2]
+    area2 = _fma(x1 - x0, y2 - y0, -((y1 - y0) * (x2 - x0)))
+    if cull_keep_sign > 0:
+        facing = area2 > 0
+    elif cull_keep_sign < 0:
+        facing = area2 < 0
+    else:
+        facing = torch.abs(area2) > 0
+    all_valid = all_valid & facing & (torch.abs(area2) > 1e-12)
+
+    inv = torch.where(torch.abs(area2) < 1e-12, 0.0, 1.0 / area2)
+    beta0 = -(y2 - y1) * inv
+    gamma0 = (x2 - x1) * inv
+    alpha0 = _fma(y2 - y1, x1, -((x2 - x1) * y1)) * inv
+    beta1 = -(y0 - y2) * inv
+    gamma1 = (x0 - x2) * inv
+    alpha1 = _fma(y0 - y2, x2, -((x0 - x2) * y2)) * inv
+    z2c = sz[:, 2]
+    dz0 = sz[:, 0] - sz[:, 2]
+    dz1 = sz[:, 1] - sz[:, 2]
+    if depth_bias_constant != 0.0 or depth_bias_slope != 0.0:
+        # vkCmdSetDepthBias: constant * 2^-23 + slope * max|dz/dxy|, folded
+        # into the affine depth (constant per triangle)
+        slope_m = torch.maximum(
+            torch.abs(dz0 * beta0 + dz1 * beta1), torch.abs(dz0 * gamma0 + dz1 * gamma1)
+        )
+        z2c = z2c + (depth_bias_constant * 2.0**-23 + depth_bias_slope * slope_m)
+
+    inf = torch.tensor(float("inf"), dtype=F32, device=dev)
+    cols = torch.stack(
+        [
+            alpha0, beta0, gamma0, alpha1, beta1, gamma1, z2c, dz0, dz1,
+            all_valid.to(F32),
+            torch.where(all_valid, torch.amin(sx, dim=1), inf),
+            torch.where(all_valid, torch.amax(sx, dim=1), -inf),
+            torch.where(all_valid, torch.amin(sy, dim=1), inf),
+            torch.where(all_valid, torch.amax(sy, dim=1), -inf),
+        ],
+        dim=-1,
+    )
+    return cols, all_bary, w_all
+
+
+def _finish_setup(cols, all_bary, w_all, grid_width, grid_height, grid_origin) -> TriSetup:
+    """Tile ranges for this grid + padding to the CHUNK multiple
+    (``raster.py:247-360``). The affine forms stay in GLOBAL pixel
+    coordinates; only the tile ranges depend on the origin."""
+    dev = cols.device
+    bb_min_x, bb_max_x, bb_min_y, bb_max_y = cols[:, 10], cols[:, 11], cols[:, 12], cols[:, 13]
+    oy = float(grid_origin[0])
+    ox = float(grid_origin[1])
+    t2 = cols.shape[0]
+    t2_pad = -(-t2 // CHUNK) * CHUNK
+    n_t = t2 // 2
+    tiles_y = -(-grid_height // TILE_H)
+    tiles_x = -(-grid_width // TILE_W)
+
+    def tile_range(lo, hi, origin, tile, n):
+        t0 = torch.clamp(torch.floor((lo - origin) / tile), 0, n).to(torch.int32)
+        t1 = torch.clamp(torch.floor((hi - origin) / tile), -1, n - 1).to(torch.int32)
+        return t0.to(F32) * _TILE_PACK + (t1 + 1).to(F32)
+
+    packx = tile_range(bb_min_x, bb_max_x, ox, TILE_W, tiles_x)
+    packy = tile_range(bb_min_y, bb_max_y, oy, TILE_H, tiles_y)
+    coeffs = torch.cat([cols[:, :10], packx[:, None], packy[:, None]], dim=-1)
+    pad = t2_pad - t2
+    ar = torch.arange(n_t, dtype=torch.int32, device=dev)
+    return TriSetup(
+        coeffs=torch.cat([coeffs, torch.zeros((pad, _COEFF_WIDTH), dtype=F32, device=dev)]),
+        orig_tri=torch.cat([ar, ar, torch.zeros(pad, dtype=torch.int32, device=dev)]),
+        corner_bary=torch.cat([all_bary, torch.zeros((pad, 3, 2), dtype=F32, device=dev)]),
+        corner_w=torch.cat([w_all, torch.ones((pad, 3), dtype=F32, device=dev)]),
+    )
+
+
+def setup_triangles(
+    clip,  # (V, 4) clip-space positions (ignored when corner_clip is given)
+    triangles: torch.Tensor,  # (T, 3) i32
+    tri_valid: torch.Tensor,  # (T,) bool
+    width: int,
+    height: int,
+    cull_keep_sign: int,  # +1 keep CW/front (camera), -1 keep CCW (shadow), 0 none
+    grid_width: int | None = None,
+    grid_height: int | None = None,
+    grid_origin=(0, 0),  # global (y, x) pixel origin of the raster target
+    corner_clip: torch.Tensor | None = None,  # (T, 3, 4) pre-gathered corners
+    depth_bias_constant: float = 0.0,
+    depth_bias_slope: float = 0.0,
+) -> TriSetup:
+    """Vectorized triangle setup with near-plane clipping
+    (``raster.py:363-479``). ``width``/``height`` are the viewport,
+    ``grid_*`` the padded raster target (default: rounded up to tiles)."""
+    grid_width = -(-width // TILE_W) * TILE_W if grid_width is None else grid_width
+    grid_height = -(-height // TILE_H) * TILE_H if grid_height is None else grid_height
+    corners = clip[triangles.long()] if corner_clip is None else corner_clip
+    cols, all_bary, w_all = _setup_slots(
+        corners, tri_valid, width, height, cull_keep_sign,
+        depth_bias_constant, depth_bias_slope,
+    )
+    return _finish_setup(cols, all_bary, w_all, grid_width, grid_height, grid_origin)
+
+
+# ---------------------------------------------------------------------------
+# exact binning
+# ---------------------------------------------------------------------------
+
+
+def bin_triangles(coeffs: torch.Tensor, height: int, width: int) -> TileLists:
+    """Exact per-tile slot lists from coefficient columns 10/11.
+
+    Count the tiles each slot touches, expand to (tile, slot) pairs with
+    an exclusive scan, sort by tile (slot ascending within a tile) and
+    take per-tile offsets. One host sync (the pair count sizes the
+    expansion)."""
+    if height % TILE_H or width % TILE_W:
+        raise ValueError(f"raster target {width}x{height} is not a tile multiple")
+    dev = coeffs.device
+    tiles_y, tiles_x = height // TILE_H, width // TILE_W
+    pkx = coeffs[:, 10].to(torch.int64)
+    pky = coeffs[:, 11].to(torch.int64)
+    tx0, tx1p = pkx // 4096, pkx % 4096
+    ty0, ty1p = pky // 4096, pky % 4096
+    nx = torch.clamp(tx1p - tx0, min=0)
+    ny = torch.clamp(ty1p - ty0, min=0)
+    count = nx * ny
+    total = int(count.sum())
+    n_slots = coeffs.shape[0]
+    if total == 0:
+        return TileLists(
+            torch.zeros(0, dtype=torch.int32, device=dev),
+            torch.zeros(tiles_y * tiles_x + 1, dtype=torch.int32, device=dev),
+            tiles_y, tiles_x,
+        )
+    slot = torch.repeat_interleave(
+        torch.arange(n_slots, device=dev), count, output_size=total
+    )
+    start = torch.cumsum(count, 0) - count
+    local = torch.arange(total, device=dev) - start[slot]
+    nx_s = nx[slot]
+    tile = (ty0[slot] + local // nx_s) * tiles_x + (tx0[slot] + local % nx_s)
+    key = torch.sort(tile * n_slots + slot).values
+    tiles_sorted = key // n_slots
+    per_tile = torch.bincount(tiles_sorted, minlength=tiles_y * tiles_x)
+    offsets = torch.zeros(tiles_y * tiles_x + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(per_tile, 0)
+    return TileLists(
+        (key % n_slots).to(torch.int32), offsets.to(torch.int32), tiles_y, tiles_x
+    )
+
+
+# ---------------------------------------------------------------------------
+# the raster: plain torch version and the CUDA kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def rasterize_plain(
+    setup: TriSetup, width: int, height: int, depth_only: bool = False,
+    origin=(0, 0), lists: TileLists | None = None,
+) -> VisibilityBuffer:
+    """The raster in plain torch, per tile over batches of listed slots.
+
+    Each batch evaluates every slot's affine forms over the whole tile
+    with the kernel's operations (``b0 = fma(be0, px, a0) + g0 * py``,
+    ``z = fma(dz1, b1, fma(dz0, b0, z2))``: the fused multiply-adds of the
+    reference's CPU vector raster), picks per pixel the maximal
+    candidate z (the LARGER slot on ties) and commits it where it is
+    ``>=`` the carried depth: the ``_chunk_loop_vector`` formulation
+    (``syzygy_tpu/kernels/raster.py:644-664``), equal to the serial
+    ascending-slot ``z >= depth`` loop the CUDA kernel runs."""
+    dev = setup.coeffs.device
+    lists = bin_triangles(setup.coeffs, height, width) if lists is None else lists
+    oy, ox = int(origin[0]), int(origin[1])
+    depth = torch.zeros((height, width), dtype=F32, device=dev)
+    tri = torch.full((height, width), -1, dtype=torch.int32, device=dev)
+    b0 = torch.zeros((height, width), dtype=F32, device=dev)
+    b1 = torch.zeros((height, width), dtype=F32, device=dev)
+    offsets = lists.offsets.tolist()
+    rows = torch.arange(TILE_H, device=dev)
+    cols = torch.arange(TILE_W, device=dev)
+    for tile in range(lists.tiles_y * lists.tiles_x):
+        begin, end = offsets[tile], offsets[tile + 1]
+        if begin == end:
+            continue
+        ty, tx = divmod(tile, lists.tiles_x)
+        ys = slice(ty * TILE_H, (ty + 1) * TILE_H)
+        xs = slice(tx * TILE_W, (tx + 1) * TILE_W)
+        px = ((tx * TILE_W + ox + cols).to(F32) + 0.5)[None, None, :]
+        py = ((ty * TILE_H + oy + rows).to(F32) + 0.5)[None, :, None]
+        d, t, e0_t, e1_t = depth[ys, xs], tri[ys, xs], b0[ys, xs], b1[ys, xs]
+        for s in range(begin, end, _PLAIN_BATCH):
+            ids = lists.slots[s : min(s + _PLAIN_BATCH, end)].long()
+            c = setup.coeffs[ids][:, :, None, None]  # (B, 12, 1, 1)
+            e0 = _fma(c[:, 1], px, c[:, 0]) + c[:, 2] * py
+            e1 = _fma(c[:, 4], px, c[:, 3]) + c[:, 5] * py
+            e2 = (1.0 - e0) - e1
+            z = _fma(c[:, 8], e1, _fma(c[:, 7], e0, c[:, 6]))
+            cand = (e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (z <= 1.0) & (z >= 0.0) & (c[:, 9] > 0)
+            zm = torch.where(cand, z, -1.0)
+            best = zm.amax(dim=0)
+            order = torch.arange(ids.shape[0], device=dev)[:, None, None]
+            win = torch.where(zm == best, order, -1).amax(dim=0)  # last index on ties
+            hit = best >= d
+            d.copy_(torch.where(hit, best, d))
+            if not depth_only:
+                t.copy_(torch.where(hit, ids[win].to(torch.int32), t))
+                e0_t.copy_(torch.where(hit, e0.gather(0, win[None])[0], e0_t))
+                e1_t.copy_(torch.where(hit, e1.gather(0, win[None])[0], e1_t))
+    if depth_only:
+        empty = torch.zeros((0, 0), dtype=F32, device=dev)
+        return VisibilityBuffer(depth, empty, empty, empty)
+    return VisibilityBuffer(depth, tri, b0, b1)
+
+
+class LaunchCounts:
+    """Kernel launches per raster kind, counted by :func:`rasterize` where
+    it launches the CUDA kernel and nowhere else."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.visibility = 0  # camera rasters (full visibility buffer)
+        self.depth = 0  # shadow-map rasters (depth only)
+
+
+LAUNCHES = LaunchCounts()
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc", "raster.cu")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fallback = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if os.path.exists(fallback):
+        return fallback
+    raise RuntimeError("nvcc not found: the CUDA raster kernel cannot be built")
+
+
+def build_kernel() -> ctypes.CDLL:
+    """Compile ``csrc/raster.cu`` for sm_90a into ``_build/`` (once per
+    source version) and bind its C entry point."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    so_path = os.path.join(_BUILD_DIR, f"libsyzygy_raster_{digest}.so")
+    if not os.path.exists(so_path):
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        cmd = [
+            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+            "-Xcompiler", "-fPIC", "-o", tmp, _SRC,
+        ]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
+        os.replace(tmp, so_path)
+        with open(so_path + ".log", "w") as f:  # ptxas register/smem report
+            f.write(proc.stderr)
+    lib = ctypes.CDLL(so_path)
+    lib.szg_raster.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
+    lib.szg_raster.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def _launch_kernel(setup: TriSetup, lists: TileLists, height, width, depth_only, origin):
+    coeffs = setup.coeffs
+    if coeffs.dtype != F32 or not coeffs.is_contiguous() or coeffs.shape[1] != _COEFF_WIDTH:
+        raise ValueError("coeffs must be a contiguous (T2pad, 12) float32 tensor")
+    if lists.slots.dtype != torch.int32 or lists.offsets.dtype != torch.int32:
+        raise ValueError("tile lists must be int32")
+    if (lists.tiles_y * TILE_H, lists.tiles_x * TILE_W) != (height, width):
+        raise ValueError(f"tile lists cover {lists.tiles_x}x{lists.tiles_y} tiles, not {width}x{height} px")
+    if lists.slots.device != coeffs.device or lists.offsets.device != coeffs.device:
+        raise ValueError("tile lists and coefficients must be on one device")
+    lib = build_kernel()
+    dev = coeffs.device
+    depth = torch.empty((height, width), dtype=F32, device=dev)
+    if depth_only:
+        tri = b0 = b1 = None
+    else:
+        tri = torch.empty((height, width), dtype=torch.int32, device=dev)
+        b0 = torch.empty((height, width), dtype=F32, device=dev)
+        b1 = torch.empty((height, width), dtype=F32, device=dev)
+    slots = lists.slots if lists.slots.numel() else torch.zeros(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.szg_raster(
+            coeffs.data_ptr(), slots.data_ptr(), lists.offsets.data_ptr(),
+            lists.tiles_y, lists.tiles_x, int(origin[0]), int(origin[1]),
+            int(depth_only),
+            depth.data_ptr(),
+            tri.data_ptr() if tri is not None else None,
+            b0.data_ptr() if b0 is not None else None,
+            b1.data_ptr() if b1 is not None else None,
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"raster kernel launch failed: CUDA error {err}")
+    if depth_only:
+        LAUNCHES.depth += 1
+        empty = torch.zeros((0, 0), dtype=F32, device=dev)
+        return VisibilityBuffer(depth, empty, empty, empty)
+    LAUNCHES.visibility += 1
+    return VisibilityBuffer(depth, tri, b0, b1)
+
+
+def rasterize(
+    setup: TriSetup, width: int, height: int, depth_only: bool = False,
+    origin=(0, 0), lists: TileLists | None = None,
+) -> VisibilityBuffer:
+    """Visibility (or depth-only) raster of a padded ``height x width``
+    target (tile multiples). One function replaces the reference's four
+    ``pallas_call`` sites (listed/full-iteration x full/depth-only).
+
+    CUDA tensors launch ``csrc/raster.cu``; CPU tensors run
+    :func:`rasterize_plain`. Any other device raises."""
+    kind = setup.coeffs.device.type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"no raster for device type {kind!r}")
+    lists = bin_triangles(setup.coeffs, height, width) if lists is None else lists
+    if kind == "cpu":
+        return rasterize_plain(setup, width, height, depth_only, origin, lists)
+    return _launch_kernel(setup, lists, height, width, depth_only, origin)

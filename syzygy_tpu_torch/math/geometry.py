@@ -1,0 +1,313 @@
+"""Engine geometry conventions and matrix constructors, in torch.
+
+Port of ``syzygy_tpu/math/geometry.py``: row-major matrices acting on column
+vectors, float32, leading batch dims allowed on every input. Conventions
+(``geometryhelpers.hpp:16-29``): +x right, +y DOWN, +z forward; reverse-Z;
+euler angles are (pitch, roll, yaw) and ``orientate4`` is
+``RotY(yaw) @ RotX(pitch) @ RotZ(roll)``.
+
+Constants are built on the caller's device (``world_up(device)``) so no
+function reads a global default device.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+F32 = torch.float32
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded square root. torch's vectorized CPU ``sqrt`` can be
+    1 ulp off; near the horizon the atmosphere LUT mappings turn one ulp of
+    a ray direction into ~1e-3 of transmittance. Taking the root in
+    float64 and rounding once to float32 is exact (53 >= 2 * 24 + 2 bits),
+    on the CPU and on the GPU alike."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def vec_norm(v: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
+    """Euclidean norm as ``sqrt(sum(v * v))`` (``jnp.linalg.norm``'s form)."""
+    return sqrt_rn(torch.sum(v * v, dim=dim, keepdim=keepdim))
+
+
+def world_forward(device) -> torch.Tensor:
+    return torch.tensor([0.0, 0.0, 1.0], dtype=F32, device=device)
+
+
+def world_up(device) -> torch.Tensor:
+    return torch.tensor([0.0, -1.0, 0.0], dtype=F32, device=device)
+
+
+def world_right(device) -> torch.Tensor:
+    return torch.tensor([1.0, 0.0, 0.0], dtype=F32, device=device)
+
+
+def matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``m @ v`` over the last axes, (..., R, K) x (..., K) -> (..., R), for
+    K = 3 or 4, summed as ``(p0 + p1) + (p2 + p3)`` without fused
+    multiply-adds.
+
+    The reference's small products run through XLA's CPU dot, whose
+    summation order depends on the shape: a point array times a shared
+    matrix (``points @ m.T``) sums pairwise like this, batched products
+    (:func:`matvec_fma`, :func:`matmul4`) chain fused multiply-adds.
+    Matching the order keeps vertex positions, and so raster coverage at
+    triangle edges, bitwise equal to the reference's."""
+    p = m * v[..., None, :]
+    if p.shape[-1] == 4:
+        return (p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])
+    if p.shape[-1] == 3:
+        return (p[..., 0] + p[..., 1]) + p[..., 2]
+    raise ValueError(f"matvec supports K = 3 or 4, got {p.shape[-1]}")
+
+
+def matvec_fma(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``m @ v`` over the last axes as a fused multiply-add chain,
+    ``fma(m[K-1] v[K-1], ... fma(m1 v1, m0 v0))``. Each fma is evaluated
+    in float64 (the f32 product is exact there) and rounded once to f32."""
+    v = v[..., None, :]
+    acc = m[..., 0] * v[..., 0]
+    for k in range(1, m.shape[-1]):
+        acc = (m[..., k].double() * v[..., k].double() + acc.double()).float()
+    return acc
+
+
+def matmul4(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) @ (..., 4, 4) as :func:`matvec_fma` chains."""
+    # out[i, j] = sum_k a[i, k] * b[k, j]: row i of ``a`` against b's columns
+    return matvec_fma(b.transpose(-1, -2)[..., None, :, :], a)
+
+
+def _compose4(entries) -> torch.Tensor:
+    """Stack a 4x4 from 16 (possibly batched) scalar tensors, row-major."""
+    batch = torch.broadcast_shapes(*[e.shape for e in entries])
+    flat = torch.stack([e.expand(batch) for e in entries], dim=-1)
+    return flat.reshape(*batch, 4, 4)
+
+
+def rotate_x(a: torch.Tensor) -> torch.Tensor:
+    c, s = torch.cos(a), torch.sin(a)
+    o, z = torch.ones_like(c), torch.zeros_like(c)
+    return _compose4([o, z, z, z, z, c, -s, z, z, s, c, z, z, z, z, o])
+
+
+def rotate_y(a: torch.Tensor) -> torch.Tensor:
+    c, s = torch.cos(a), torch.sin(a)
+    o, z = torch.ones_like(c), torch.zeros_like(c)
+    return _compose4([c, z, s, z, z, o, z, z, -s, z, c, z, z, z, z, o])
+
+
+def rotate_z(a: torch.Tensor) -> torch.Tensor:
+    c, s = torch.cos(a), torch.sin(a)
+    o, z = torch.ones_like(c), torch.zeros_like(c)
+    return _compose4([c, -s, z, z, s, c, z, z, z, z, o, z, z, z, z, o])
+
+
+def orientate4(e: torch.Tensor) -> torch.Tensor:
+    """GLM ``orientate4``: RotY(yaw) @ RotX(pitch) @ RotZ(roll)."""
+    return matmul4(matmul4(rotate_y(e[..., 2]), rotate_x(e[..., 0])), rotate_z(e[..., 1]))
+
+
+def forward_from_eulers(e: torch.Tensor) -> torch.Tensor:
+    """``forwardFromEulers`` (``geometryhelpers.cpp:102-105``)."""
+    pitch, yaw = e[..., 0], e[..., 2]
+    cp = torch.cos(pitch)
+    return torch.stack(
+        [torch.sin(yaw) * cp, -torch.sin(pitch), torch.cos(yaw) * cp], dim=-1
+    )
+
+
+def eulers_from_forward(forward: torch.Tensor) -> torch.Tensor:
+    """``eulersFromForward`` (``geometryhelpers.cpp:107-145``): (pitch, 0,
+    yaw); a degenerate zero-length input maps to zeros."""
+    dev = forward.device
+    length_sq = torch.sum(forward * forward, dim=-1, keepdim=True)
+    safe = length_sq > torch.finfo(F32).eps
+    fn = torch.where(safe, forward * (1.0 / sqrt_rn(length_sq)), 0.0)
+    dot_forward = torch.sum(fn * world_forward(dev), dim=-1)
+    dot_right = torch.sum(fn * world_right(dev), dim=-1)
+    dot_up = torch.sum(fn * world_up(dev), dim=-1)
+    pitch = torch.asin(torch.clamp(dot_up, -1.0, 1.0))
+    yaw = torch.atan2(dot_right, dot_forward)
+    eulers = torch.stack([pitch, torch.zeros_like(pitch), yaw], dim=-1)
+    return torch.where(safe, eulers, 0.0)
+
+
+def inverse4(m: torch.Tensor) -> torch.Tensor:
+    """Closed-form cofactor inverse of (..., 4, 4) matrices (the same
+    adjugate formula as the reference, so results agree to rounding)."""
+    a = [[m[..., i, j] for j in range(4)] for i in range(4)]
+
+    def det3(r0, r1, r2, c0, c1, c2):
+        return (
+            a[r0][c0] * (a[r1][c1] * a[r2][c2] - a[r1][c2] * a[r2][c1])
+            - a[r0][c1] * (a[r1][c0] * a[r2][c2] - a[r1][c2] * a[r2][c0])
+            + a[r0][c2] * (a[r1][c0] * a[r2][c1] - a[r1][c1] * a[r2][c0])
+        )
+
+    rows = (0, 1, 2, 3)
+    cof = [[None] * 4 for _ in range(4)]
+    for i in range(4):
+        ri = [r for r in rows if r != i]
+        for j in range(4):
+            cj = [c for c in rows if c != j]
+            minor = det3(ri[0], ri[1], ri[2], cj[0], cj[1], cj[2])
+            cof[i][j] = minor if (i + j) % 2 == 0 else -minor
+    det = (
+        a[0][0] * cof[0][0]
+        + a[0][1] * cof[0][1]
+        + a[0][2] * cof[0][2]
+        + a[0][3] * cof[0][3]
+    )
+    inv_det = 1.0 / det
+    flat = torch.stack(
+        [cof[j][i] * inv_det for i in range(4) for j in range(4)], dim=-1
+    )
+    return flat.reshape(*m.shape[:-2], 4, 4)
+
+
+def translate(t: torch.Tensor) -> torch.Tensor:
+    eye = torch.eye(4, dtype=F32, device=t.device)
+    out = eye.expand(*t.shape[:-1], 4, 4).clone()
+    out[..., 0:3, 3] = t
+    return out
+
+
+def scale_matrix(s: torch.Tensor) -> torch.Tensor:
+    o = torch.ones_like(s[..., 0])
+    z = torch.zeros_like(o)
+    return _compose4(
+        [s[..., 0], z, z, z, z, s[..., 1], z, z, z, z, s[..., 2], z, z, z, z, o]
+    )
+
+
+def view_vk(position: torch.Tensor, euler_angles: torch.Tensor):
+    """``viewVk`` = inverse(transformVk), computed as R^T @ T(-p)."""
+    rot_t = orientate4(euler_angles).transpose(-1, -2)
+    return matmul4(rot_t, translate(-position))
+
+
+def _normalize(v, eps=1e-20):
+    return v / sqrt_rn(torch.clamp(torch.sum(v * v, dim=-1, keepdim=True), min=eps))
+
+
+def _dot(a, b):
+    return torch.sum(a * b, dim=-1)
+
+
+def look_at_vk(eye, center, up) -> torch.Tensor:
+    """``lookAtVk`` (``geometryhelpers.cpp:63-68``): scale(1,-1,-1) @ lookAtRH."""
+    f = _normalize(center - eye)
+    s = _normalize(torch.linalg.cross(f, up.expand_as(f)))
+    u = torch.linalg.cross(s, f)
+    z = torch.zeros_like(f[..., 0])
+    o = torch.ones_like(z)
+    look_rh = _compose4(
+        [
+            s[..., 0], s[..., 1], s[..., 2], -_dot(s, eye),
+            u[..., 0], u[..., 1], u[..., 2], -_dot(u, eye),
+            -f[..., 0], -f[..., 1], -f[..., 2], _dot(f, eye),
+            z, z, z, o,
+        ]
+    )
+    flip = scale_matrix(torch.tensor([1.0, -1.0, -1.0], dtype=F32, device=eye.device))
+    return matmul4(flip, look_rh)
+
+
+def look_at_vk_safe(eye, center) -> torch.Tensor:
+    """``lookAtVkSafe`` (``geometryhelpers.cpp:70-81``)."""
+    dev = eye.device
+    cosine = torch.sum(world_forward(dev) * world_up(dev))
+    up = torch.where(
+        torch.abs(cosine) > 0.99,
+        world_forward(dev) * torch.sign(cosine),
+        world_up(dev),
+    )
+    return look_at_vk(eye, center, up)
+
+
+def perspective_vk(fov_y_degrees, aspect_ratio, near, far) -> torch.Tensor:
+    """``projectionVk`` (``geometryhelpers.cpp:83-95``): perspectiveLH_ZO
+    with near/far swapped (reverse-Z). Arguments are f32 tensors."""
+    fov = torch.deg2rad(fov_y_degrees)
+    t = torch.tan(fov / 2.0)
+    z_near, z_far = far, near
+    shape = torch.broadcast_shapes(t.shape, aspect_ratio.shape, near.shape, far.shape)
+    t = t.expand(shape)
+    z = torch.zeros_like(t)
+    o = torch.ones_like(t)
+    return _compose4(
+        [
+            1.0 / (aspect_ratio * t), z, z, z,
+            z, 1.0 / t, z, z,
+            z, z, (z_far / (z_far - z_near)).expand(shape),
+            (-(z_far * z_near) / (z_far - z_near)).expand(shape),
+            z, z, o, z,
+        ]
+    )
+
+
+def projection_ortho_vk(mn: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
+    """``projectionOrthoVk`` (``geometryhelpers.cpp:97-100``)."""
+    left, right = mn[..., 0], mx[..., 0]
+    bottom, top = mn[..., 1], mx[..., 1]
+    z_near, z_far = mx[..., 2], mn[..., 2]
+    z = torch.zeros_like(left)
+    o = torch.ones_like(left)
+    return _compose4(
+        [
+            2.0 / (right - left), z, z, -(right + left) / (right - left),
+            z, 2.0 / (top - bottom), z, -(top + bottom) / (top - bottom),
+            z, z, 1.0 / (z_far - z_near), -z_near / (z_far - z_near),
+            z, z, z, o,
+        ]
+    )
+
+
+class AABB(NamedTuple):
+    """Axis-aligned box as center + half extent."""
+
+    center: torch.Tensor  # (..., 3)
+    half_extent: torch.Tensor  # (..., 3)
+
+    def collect_vertices(self) -> torch.Tensor:
+        signs = torch.tensor(
+            [
+                [sx, sy, sz]
+                for sx in (-1.0, 1.0)
+                for sy in (-1.0, 1.0)
+                for sz in (-1.0, 1.0)
+            ],
+            dtype=F32,
+            device=self.center.device,
+        )
+        return self.center[..., None, :] + self.half_extent[..., None, :] * signs
+
+
+def project_point_on_plane(plane_point, plane_normal, point) -> torch.Tensor:
+    """``projectPointOnPlane`` (``geometryhelpers.cpp:55-61``), reproducing
+    the reference's quirk: it ADDS the normal component."""
+    to_point = point - plane_point
+    return torch.sum(to_point * plane_normal, dim=-1, keepdim=True) * plane_normal + point
+
+
+def ortho_aabb_vk(view: torch.Tensor, bounds: AABB) -> torch.Tensor:
+    """``projectionOrthoAABBVk`` (``geometryhelpers.cpp:171-204``)."""
+    verts = bounds.collect_vertices()  # (..., 8, 3)
+    ones = torch.ones((*verts.shape[:-1], 1), dtype=F32, device=verts.device)
+    verts_h = torch.cat([verts, ones], dim=-1)
+    verts_view = matvec(view[..., None, :, :], verts_h)[..., :3]
+    center_h = torch.cat(
+        [bounds.center, torch.ones((*bounds.center.shape[:-1], 1), dtype=F32, device=verts.device)],
+        dim=-1,
+    )
+    center_view = matvec(view, center_h)[..., :3]
+    projected = project_point_on_plane(
+        center_view[..., None, :], world_forward(verts.device), verts_view
+    )
+    view_min = torch.amin(projected, dim=-2)
+    view_max = torch.amax(projected, dim=-2)
+    return projection_ortho_vk(view_min, view_max)
