@@ -1,13 +1,16 @@
-"""Headless renderer: render the default scene for a few frames.
+"""Headless renderer: render a scene for a few frames.
 
-Port of the ``syzygy_tpu/app/__main__.py`` batch loop for the default
-scene: ticks the scene (the sun advances), renders each frame through
-:func:`renderer.frame.render_frame` on the named device, quantizes to u8 on
-the device, and writes one PNG per frame.
+Port of the ``syzygy_tpu/app/__main__.py`` batch loop: builds a builtin
+scene (``--scene``) or loads a .glb/.gltf (``--gltf``), frames it with
+the reference app's default showcase view (eye (18, -16, -22) looking at
+(0, -6, 0)), ticks it (the sun advances unless the scene freezes it),
+renders each frame through :func:`renderer.frame.render_frame` on the
+device, quantizes to u8 there, and writes one PNG per frame. The device
+is the card unless ``--device cpu`` asks for the CPU.
 
 Usage:
-    python -m syzygy_tpu_torch.app --frames 4 --width 960 --height 540 \\
-        --out frames --device cuda
+    python -m syzygy_tpu_torch.app --scene flagship --frames 4 --out frames
+    python -m syzygy_tpu_torch.app --frames 1 --width 256 --height 128 --device cpu
 """
 
 from __future__ import annotations
@@ -17,14 +20,21 @@ import dataclasses
 import os
 import time
 
+from syzygy_tpu_torch.app.scenes import BUILTIN_SCENES
+
+EYE = (18.0, -16.0, -22.0)
+LOOK_AT = (0.0, -6.0, 0.0)
+
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="syzygy_tpu_torch headless renderer")
+    parser.add_argument("--scene", type=str, default="default", choices=BUILTIN_SCENES)
+    parser.add_argument("--gltf", type=str, default=None, help="path to .glb/.gltf (replaces --scene)")
     parser.add_argument("--frames", type=int, default=1)
     parser.add_argument("--width", type=int, default=1920)
     parser.add_argument("--height", type=int, default=1080)
     parser.add_argument("--out", type=str, default="frames")
-    parser.add_argument("--device", type=str, required=True, help="cuda, cuda:N or cpu")
+    parser.add_argument("--device", type=str, default="cuda", help="cuda, cuda:N or cpu")
     parser.add_argument("--shadow-dim", type=int, default=1024)
     parser.add_argument("--skyview-scale", type=int, default=1, help="divide the 2048x1024 sky-view LUT")
     parser.add_argument("--dt", type=float, default=1.0 / 60.0, help="scene seconds per frame")
@@ -33,6 +43,7 @@ def main(argv=None) -> None:
     import torch
 
     from syzygy_tpu_torch.device import as_device
+    from syzygy_tpu_torch.math.geometry import eulers_from_forward
     from syzygy_tpu_torch.renderer.frame import RenderConfig, render_frame
     from syzygy_tpu_torch.runtime import fetch_frame_u8
     from syzygy_tpu_torch.scene.pack import (
@@ -41,11 +52,20 @@ def main(argv=None) -> None:
         scene_uses_metallic,
         upload_frame_params,
     )
-    from syzygy_tpu_torch.scene.scene import default_scene
     from syzygy_tpu_torch.utils.png import write_png
 
     device = as_device(args.device)
-    scene, library = default_scene()
+    if args.gltf:
+        from syzygy_tpu_torch.assets.gltf import load_gltf_scene
+
+        scene, library = load_gltf_scene(args.gltf)
+    else:
+        from syzygy_tpu_torch.app.scenes import builtin_scene
+
+        scene, library = builtin_scene(args.scene)
+    scene.camera.position = EYE
+    forward = torch.tensor(LOOK_AT, device="cpu") - torch.tensor(EYE, device="cpu")
+    scene.camera.euler_angles = tuple(float(x) for x in eulers_from_forward(forward))
     scene.tick(0.0)
     config = RenderConfig(
         width=args.width,

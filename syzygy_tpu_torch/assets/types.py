@@ -65,6 +65,18 @@ def srgb_to_linear(srgb: np.ndarray) -> np.ndarray:
     ).astype(np.float32)
 
 
+def linear_to_srgb(linear: np.ndarray) -> np.ndarray:
+    """sRGB OETF, inverse of :func:`srgb_to_linear`: the reference's f32
+    arithmetic (``syzygy_tpu/assets/types.py:75``, and its copy in
+    ``gltf_export.py:26``, which computes the same)."""
+    linear = np.clip(linear.astype(np.float32), 0.0, 1.0)
+    return np.where(
+        linear <= 0.0031308,
+        linear * 12.92,
+        1.055 * linear ** (1.0 / 2.4) - 0.055,
+    ).astype(np.float32)
+
+
 class TextureLibrary:
     """Registry of native-resolution float32 (linear light) textures.
 

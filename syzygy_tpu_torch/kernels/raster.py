@@ -24,14 +24,11 @@ later slot wins a tie), front faces CW on screen (positive doubled area).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from typing import NamedTuple
 
 import torch
+
+from syzygy_tpu_torch.kernels import build
 
 TILE_H = 64
 TILE_W = 128
@@ -152,13 +149,23 @@ def _setup_slots(tri_corner_clip, tri_valid, width, height, cull_keep_sign,
 
     w_all = torch.clamp(all_tris[..., 3], min=W_CLIP_EPS * 0.5)
     ndc = all_tris[..., :3] / w_all[..., None]
-    sx = (ndc[..., 0] * 0.5 + 0.5) * width  # x * 0.5 is exact: no contraction to mimic
-    sy = (ndc[..., 1] * 0.5 + 0.5) * height
+    ux = ndc[..., 0] * 0.5 + 0.5  # x * 0.5 is exact: no contraction to mimic
+    uy = ndc[..., 1] * 0.5 + 0.5
+    sx = ux * width
+    sy = uy * height
     sz = ndc[..., 2]
 
     x0, x1, x2 = sx[:, 0], sx[:, 1], sx[:, 2]
     y0, y1, y2 = sy[:, 0], sy[:, 1], sy[:, 2]
-    area2 = _fma(x1 - x0, y2 - y0, -((y1 - y0) * (x2 - x0)))
+    # The reference's compiled area recomputes the screen positions and
+    # contracts each single-use product (corners 1 and 2) into its
+    # subtraction from corner 0; exact when the viewport side is a power
+    # of two, one rounding fewer otherwise.
+    w_t = torch.tensor(float(width), dtype=F32, device=dev)
+    h_t = torch.tensor(float(height), dtype=F32, device=dev)
+    dx10, dx20 = _fma(ux[:, 1], w_t, -x0), _fma(ux[:, 2], w_t, -x0)
+    dy10, dy20 = _fma(uy[:, 1], h_t, -y0), _fma(uy[:, 2], h_t, -y0)
+    area2 = _fma(dx10, dy20, -(dy10 * dx20))
     if cull_keep_sign > 0:
         facing = area2 > 0
     elif cull_keep_sign < 0:
@@ -384,50 +391,12 @@ class LaunchCounts:
 
 LAUNCHES = LaunchCounts()
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc", "raster.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
-_lib = None
 
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    fallback = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if os.path.exists(fallback):
-        return fallback
-    raise RuntimeError("nvcc not found: the CUDA raster kernel cannot be built")
-
-
-def build_kernel() -> ctypes.CDLL:
-    """Compile ``csrc/raster.cu`` for sm_90a into ``_build/`` (once per
-    source version) and bind its C entry point."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    so_path = os.path.join(_BUILD_DIR, f"libsyzygy_raster_{digest}.so")
-    if not os.path.exists(so_path):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        cmd = [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-            "-Xcompiler", "-fPIC", "-o", tmp, _SRC,
-        ]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
-        os.replace(tmp, so_path)
-        with open(so_path + ".log", "w") as f:  # ptxas register/smem report
-            f.write(proc.stderr)
-    lib = ctypes.CDLL(so_path)
+def _kernel_library() -> ctypes.CDLL:
+    """``csrc/raster.cu``, built at first use, with its entry point bound."""
+    lib = build.load("raster")
     lib.szg_raster.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
     lib.szg_raster.restype = ctypes.c_int
-    _lib = lib
     return lib
 
 
@@ -441,7 +410,7 @@ def _launch_kernel(setup: TriSetup, lists: TileLists, height, width, depth_only,
         raise ValueError(f"tile lists cover {lists.tiles_x}x{lists.tiles_y} tiles, not {width}x{height} px")
     if lists.slots.device != coeffs.device or lists.offsets.device != coeffs.device:
         raise ValueError("tile lists and coefficients must be on one device")
-    lib = build_kernel()
+    lib = _kernel_library()
     dev = coeffs.device
     depth = torch.empty((height, width), dtype=F32, device=dev)
     if depth_only:

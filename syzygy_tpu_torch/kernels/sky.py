@@ -332,10 +332,17 @@ def sky_camera_pass(
     # engine (+y down, meters) -> sky space (+y up, Mm) (camera.comp:318-322)
     position = camera.position[:3] / METERS_PER_MM * flip + up_r
 
-    # per-pixel view ray (camera.comp:324-328)
-    xs = (torch.arange(w, dtype=F32, device=dev)[None, :] / draw_w - 0.5) * 2.0
+    # per-pixel view ray (camera.comp:324-328). The reference's compiled
+    # ``i / extent - 0.5`` is ``fma(i, 1 / extent, -0.5)`` (division by a
+    # constant becomes a reciprocal multiply, then contracts); exact for
+    # power-of-two extents, one rounding fewer otherwise.
+    def centred(i, extent):
+        inv = torch.tensor(1.0 / extent, dtype=F32, device=dev)
+        return (i.double() * inv.double() - 0.5).float() * 2.0
+
+    xs = centred(torch.arange(w, dtype=F32, device=dev)[None, :], draw_w)
     rows = torch.arange(h, dtype=F32, device=dev) + float(row_origin)
-    ys = (rows[:, None] / draw_h - 0.5) * 2.0
+    ys = centred(rows[:, None], draw_h)
     clip_uv = torch.stack([xs.expand(h, w), ys.expand(h, w)], dim=-1)
     ones = torch.ones((h, w, 1), dtype=F32, device=dev)
     view_h = matvec(camera.inverse_projection, torch.cat([clip_uv, ones, ones], dim=-1))

@@ -1,6 +1,6 @@
 """Where a frame's time goes, on one GPU.
 
-    python -m syzygy_tpu_torch.profile --scene default|dense
+    python -m syzygy_tpu_torch.profile --scene default|dense|flagship
 
 Renders the scene at the default 1920x1080 RenderConfig on ``cuda:0``:
 2 warm-up frames, then
@@ -47,23 +47,31 @@ STEPS = (
 
 
 def _scene(name: str, device):
+    from syzygy_tpu_torch.assets.chess import flagship_scene
     from syzygy_tpu_torch.math.geometry import eulers_from_forward
     from syzygy_tpu_torch.renderer.frame import RenderConfig
     from syzygy_tpu_torch.scene.pack import pack_geometry, scene_uses_metallic
     from syzygy_tpu_torch.scene.scene import default_scene, dense_sphere_field
+
+    def look(eye, target):
+        eye = torch.tensor(eye, device="cpu")
+        scene.camera.position = tuple(eye.tolist())
+        scene.camera.euler_angles = tuple(
+            eulers_from_forward(torch.tensor(target, device="cpu") - eye).tolist()
+        )
 
     if name == "default":
         scene, library = default_scene()
         scene.tick(0.0)
         scene.sun_animation.time = 0.35  # daylight: sun, moon and spot all light the frame
         scene.tick(0.0)
-    else:
+    elif name == "dense":
         scene, library = dense_sphere_field()
-        eye = torch.tensor([18.0, -16.0, -22.0], device="cpu")
-        scene.camera.position = tuple(eye.tolist())
-        scene.camera.euler_angles = tuple(
-            eulers_from_forward(torch.tensor([0.0, -6.0, 0.0], device="cpu") - eye).tolist()
-        )
+        look([18.0, -16.0, -22.0], [0.0, -6.0, 0.0])
+    else:  # the chess flagship, framed as bench.py:264-271 frames it
+        scene, library = flagship_scene()
+        scene.tick(0.0)
+        look([13.0, -8.0, -14.0], [0.0, -1.0, 0.0])
     config = dataclasses.replace(
         RenderConfig(width=WIDTH, height=HEIGHT),
         metallic_reflection=scene_uses_metallic(scene, library),
@@ -73,7 +81,7 @@ def _scene(name: str, device):
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="per-layer frame profile")
-    parser.add_argument("--scene", choices=["default", "dense"], default="default")
+    parser.add_argument("--scene", choices=["default", "dense", "flagship"], default="default")
     args = parser.parse_args(argv)
 
     from syzygy_tpu_torch.renderer import frame

@@ -53,6 +53,27 @@ def test_no_forbidden_imports(path):
         assert not bad, f"{os.path.relpath(path, ROOT)}:{node.lineno} imports {sorted(bad)}"
 
 
+@pytest.mark.parametrize(
+    "module",
+    [
+        "syzygy_tpu_torch.tools.gather_bench",
+        "syzygy_tpu_torch.kernels.gather",
+        "syzygy_tpu_torch.kernels.build",
+        "syzygy_tpu_torch.assets.gltf",
+        "syzygy_tpu_torch.assets.gltf_export",
+        "syzygy_tpu_torch.assets.chess",
+        "syzygy_tpu_torch.assets.showcase",
+        "syzygy_tpu_torch.app.scenes",
+    ],
+)
+def test_scans_cover_module(module):
+    """The AST scan and the fresh-interpreter import reach every module,
+    the glTF path, the gather kernel and the tools included."""
+    assert module in set(_modules())
+    path = os.path.join(ROOT, *module.split(".")) + ".py"
+    assert path in set(_port_files())
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"

@@ -6,9 +6,9 @@ that has no JAX (the repository's ``conftest.py`` imports JAX, hence
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernel.py
 
-Tests marked ``cuda`` skip without a GPU; the unmarked one checks on the
+Tests marked ``cuda`` skip without a GPU; the unmarked ones check on the
 CPU the row-block origin semantics the kernel shares with
-``rasterize_plain``.
+``rasterize_plain``, and ``kernels/build.py`` with a stand-in compiler.
 """
 
 from __future__ import annotations
@@ -116,3 +116,48 @@ def test_kernel_row_block_origin(cuda):
 
 def test_plain_row_block_origin():
     _check_row_block(torch.device("cpu"))
+
+
+_FAKE_NVCC = """#!/bin/sh
+out=""; prev=""
+for a in "$@"; do
+  if [ "$prev" = "-o" ]; then out="$a"; fi
+  prev="$a"
+  case "$a" in *gather.cu) src=gather ;; *raster.cu) src=raster ;; esac
+done
+echo "$src" >> "$CALLS"
+if [ "$src" = "$FAIL_ON" ]; then echo "error: refused" >&2; exit 2; fi
+echo binary > "$out"
+echo "ptxas info    : Used 32 registers" >&2
+"""
+
+
+def test_build_compiles_each_source_once(tmp_path, monkeypatch):
+    """``kernels/build.py`` with a stand-in compiler: one nvcc per missing
+    source, each library and its ptxas log under a content-hash name, no
+    rebuild when present, and no partial file left when a compile fails."""
+    from syzygy_tpu_torch.kernels import build
+
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    (bin_dir / "nvcc").write_text(_FAKE_NVCC)
+    (bin_dir / "nvcc").chmod(0o755)
+    calls = tmp_path / "calls"
+    monkeypatch.setenv("PATH", f"{bin_dir}:{__import__('os').environ['PATH']}")
+    monkeypatch.setenv("CALLS", str(calls))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+
+    paths = build.build()
+    assert sorted(paths) == sorted(build.SOURCES)
+    assert sorted(calls.read_text().split()) == sorted(build.SOURCES)
+    for name, path in paths.items():
+        assert path == build.library_path(name) and (tmp_path / "build" / path.split("/")[-1]).exists()
+        assert "registers" in build.ptxas_report(name)
+    build.build()  # everything present: no compiler runs
+    assert len(calls.read_text().split()) == len(build.SOURCES)
+
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build2"))
+    monkeypatch.setenv("FAIL_ON", "gather")
+    with pytest.raises(RuntimeError, match="csrc/gather.cu"):
+        build.build()
+    assert sorted(p.name.split("_")[1] for p in (tmp_path / "build2").iterdir()) == ["raster", "raster"]
