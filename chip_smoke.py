@@ -12,12 +12,17 @@ no result line):
 2. build every CUDA kernel from ``syzygy_tpu_torch/csrc/*.cu`` (the raster
    and the lane gather, one ``nvcc`` each, concurrently), with ptxas's
    register report;
-3. each kernel vs its plain torch version on the card, timed, beside its
-   bound: the raster on the default scene's 1920x1088 camera and 1024^2
-   sun map, the 254k-triangle dense sphere field's 960x544 camera and
-   1024^2 sun map, and the chess flagship's 1920x1088 camera and 1024^2
-   sun map; the lane gather at S = 1,999,872 on the gather bench's seeded
-   inputs (and ``torch.take`` as a yardstick);
+3. each kernel vs its plain torch version on the card, bitwise, timed by
+   CUDA events and on the device (``torch.profiler``), beside its bound:
+   the raster on the default scene's 1920x1088 camera and 1024^2 sun map,
+   the 254k-triangle dense sphere field's 960x544 camera and 1024^2 sun
+   map, and the chess flagship's 1920x1088 camera and 1024^2 sun map, then
+   two cases of the kernel's design at that scale (the flagship camera
+   with every triangle twice: coplanar depth ties; 20,000 small triangles
+   on 4 tiles: lists cut across a tile's 8 CTAs); the lane gather in each
+   design at S = 1,999,872 (the bench's default) and S = 33,554,432 (its
+   indices and outputs exceed the L2) on the gather bench's seeded inputs,
+   with ``torch.take`` as a yardstick;
 4. the main paths, each with the launch counters set to 0 just before and
    read just after: 8 frames of the default scene and 6 of the chess
    flagship through ``renderer.frame.render_frame`` at the default
@@ -58,11 +63,10 @@ FP32_OPS_PER_S = 67e12
 # csrc/raster.cu per (pixel, slot): 2 mul + 4 add/sub + 2 fma (2 each) + 6 compares
 RASTER_OPS_PER_TEST = 16
 REPS = 20
+GATHER_SIZES = (1_999_872, 33_554_432)  # the bench's default S; 2^25 (268 MB of idx + out)
 
-# tolerance classes of the raster (tests/test_raster.py rules)
+# the visibility class of the golden comparison (tests/test_raster.py rules)
 EDGE_TOL = 1e-4  # an id may differ only this close (barycentric) to an edge
-DEPTH_TOL = 1e-5
-BARY_TOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -150,10 +154,20 @@ def flagship():
     return scene, library
 
 
-def raster_setups(geometry, params, config):
+def setup_with_screen(corners, valid, width, height, cull, **grid):
+    """A triangle setup and its slots' screen boxes (the corners' bounding
+    boxes, ``_setup_slots`` columns 9-13: valid, min/max x, min/max y),
+    which the setup does not keep; the raster's bound counts them."""
+    from syzygy_tpu_torch.kernels.raster import _setup_slots, setup_triangles
+
+    setup = setup_triangles(None, None, valid, width, height, cull, corner_clip=corners, **grid)
+    return setup, _setup_slots(corners, valid, width, height, cull)[0][:, 9:14]
+
+
+def raster_setups(geometry, params, config, copies=1):
     """The camera and sun-shadow triangle setups exactly as the frame
-    builds them."""
-    from syzygy_tpu_torch.kernels.raster import setup_triangles
+    builds them, each with its screen boxes; ``copies`` > 1 repeats every
+    triangle (coplanar duplicates under other slot ids)."""
     from syzygy_tpu_torch.kernels.resolve import transform_positions
     from syzygy_tpu_torch.math.geometry import matmul4, matvec
     from syzygy_tpu_torch.scene.pack import prepare_frame_state
@@ -163,19 +177,34 @@ def raster_setups(geometry, params, config):
     clip, world = transform_positions(
         geometry.positions, geometry.vert_instance, state.models, matmul4(cam.projection, cam.view)
     )
-    camera = setup_triangles(
-        clip, geometry.triangles, geometry.tri_valid, config.render_width, config.render_height,
-        cull_keep_sign=1, grid_width=config.padded_width, grid_height=config.padded_height,
+    tris = geometry.triangles.long().repeat(copies, 1)
+    camera = setup_with_screen(
+        clip[tris], geometry.tri_valid.repeat(copies), config.render_width, config.render_height, 1,
+        grid_width=config.padded_width, grid_height=config.padded_height,
     )
     sun = state.directional_lights
     world_h = torch.cat([world, torch.ones_like(world[:, :1])], dim=-1)
-    corners = world_h[geometry.triangles.long()]
-    shadow = setup_triangles(
-        None, geometry.triangles, geometry.tri_valid & geometry.tri_casts_shadow,
-        config.shadow_dim, config.shadow_dim, cull_keep_sign=-1,
-        corner_clip=matvec(matmul4(sun.projection[0], sun.view[0]), corners),
+    shadow = setup_with_screen(
+        matvec(matmul4(sun.projection[0], sun.view[0]), world_h[tris]),
+        (geometry.tri_valid & geometry.tri_casts_shadow).repeat(copies),
+        config.shadow_dim, config.shadow_dim, -1,
     )
     return camera, shadow
+
+
+def split_case(device, width=1920, height=1088):
+    """20,000 small seeded triangles on the 4 tiles of the target's top-left
+    256x128 px, every one twice (coplanar duplicates): lists of ~5,000
+    pairs per tile, which the kernel cuts into 8 parts of 3 batches."""
+    import numpy as np
+
+    rng = np.random.default_rng(29)
+    centre = rng.uniform([4.0, 4.0], [252.0, 124.0], size=(10_000, 1, 2))
+    corners = np.concatenate([centre + rng.uniform(-3.0, 3.0, size=(10_000, 3, 2))] * 2)
+    z = np.concatenate([rng.uniform(0.05, 0.95, size=(10_000, 3))] * 2)
+    ndc = np.concatenate([corners / [width, height] * 2.0 - 1.0, z[..., None], np.ones_like(z[..., None])], axis=-1)
+    clip = torch.from_numpy(ndc.astype(np.float32)).to(device)
+    return setup_with_screen(clip, torch.ones(clip.shape[0], dtype=torch.bool, device=device), width, height, 0)
 
 
 def edge_distance(setup, ys, xs, ids) -> float:
@@ -190,23 +219,44 @@ def edge_distance(setup, ys, xs, ids) -> float:
     return float(torch.where(ids >= 0, edge, torch.zeros_like(edge)).max()) if ids.numel() else 0.0
 
 
-def raster_bound(setup, lists, height, width, depth_only) -> tuple[float, str]:
+def screen_tests(screen, height, width) -> int:
+    """Pixel centres inside each valid slot's screen box, clipped to the
+    target: the tests a raster needs."""
+    def centres(lo, hi, n):
+        first = torch.ceil(torch.clamp(lo.double(), min=0.5) - 0.5)
+        last = torch.floor(torch.clamp(hi.double(), max=n - 0.5) - 0.5)
+        return (last - first + 1).clamp(min=0)
+
+    valid = screen[:, 0] > 0
+    count = centres(screen[:, 1], screen[:, 2], width) * centres(screen[:, 3], screen[:, 4], height)
+    return int(count[valid].sum())
+
+
+def raster_bound(lists, screen, height, width, depth_only) -> dict:
     """Bytes: each listed slot's 12-float row, each list entry and offset,
-    and the outputs (4 B/px depth; 16 B/px visibility) once; operations:
-    the per-(pixel, slot) test over every pixel of each listed (tile,
-    slot) pair."""
+    and the outputs (4 B/px depth; 16 B/px visibility) once. Operations:
+    16 per pixel centre inside each valid slot's screen box, clipped to the
+    target (``bound_ms``); the old count, 16 per pixel of every listed
+    (tile, slot) pair, the work of the whole-tile design, stays beside it
+    (``bound_old_ms``)."""
     from syzygy_tpu_torch.kernels.raster import TILE_H, TILE_W
 
     pairs = int(lists.slots.numel())
     listed = int(torch.unique(lists.slots).numel()) if pairs else 0
     n_bytes = listed * 48 + pairs * 4 + int(lists.offsets.numel()) * 4 + height * width * (4 if depth_only else 16)
-    return bound(n_bytes, pairs * TILE_H * TILE_W * RASTER_OPS_PER_TEST)
+    tests = screen_tests(screen, height, width)
+    out = {"screen_tests": tests}
+    out["bound_ms"], out["bound_by"] = bound(n_bytes, tests * RASTER_OPS_PER_TEST)
+    out["bound_old_ms"], out["bound_old_by"] = bound(n_bytes, pairs * TILE_H * TILE_W * RASTER_OPS_PER_TEST)
+    return out
 
 
-def compare_raster(name, setup, width, height, depth_only):
-    """Kernel vs rasterize_plain on the same inputs; returns a report."""
+def compare_raster(name, setup_screen, width, height, depth_only):
+    """Kernel vs rasterize_plain on the same inputs, bitwise (``torch.equal``
+    on every field); returns a report."""
     from syzygy_tpu_torch.kernels import raster
 
+    setup, screen = setup_screen
     lists = raster.bin_triangles(setup.coeffs, height, width)
     kern = raster.rasterize(setup, width, height, depth_only=depth_only, lists=lists)
     torch.cuda.synchronize()
@@ -214,39 +264,31 @@ def compare_raster(name, setup, width, height, depth_only):
     torch.cuda.synchronize()
 
     report = {"name": name, "shape": [height, width], "pairs": int(lists.slots.numel())}
+    fields = ("depth",) if depth_only else ("depth", "b0", "b1")
+    err = max(float((getattr(kern, f) - getattr(plain, f)).abs().max()) for f in fields)
+    report["max_abs_err"] = err
     if depth_only:
-        err = float((kern.depth - plain.depth).abs().max())
-        check(err <= DEPTH_TOL, f"{name}: depth differs by {err}")
-        report["max_abs_err"] = err
         report["covered_px"] = int((kern.depth > 0).sum())
     else:
-        differ = kern.tri != plain.tri
-        n_diff = int(differ.sum())
-        if n_diff:
-            # an id may flip only at a knife edge (or an exact depth tie)
-            ys, xs = torch.nonzero(differ, as_tuple=True)
-            worst = max(edge_distance(setup, ys, xs, ids) for ids in (kern.tri[ys, xs], plain.tri[ys, xs]))
-            check(worst < EDGE_TOL, f"{name}: {n_diff} id flips, up to {worst} from an edge")
-        same = ~differ
-        err = max(
-            float((kern.depth - plain.depth)[same].abs().max()),
-            float((kern.b0 - plain.b0)[same].abs().max()),
-            float((kern.b1 - plain.b1)[same].abs().max()),
-        )
-        check(err <= max(DEPTH_TOL, BARY_TOL), f"{name}: depth/barycentrics differ by {err}")
-        report["id_flips"] = n_diff
-        report["max_abs_err"] = err
+        report["id_flips"] = int((kern.tri != plain.tri).sum())
         report["covered_px"] = int((kern.tri >= 0).sum())
+        check(report["id_flips"] == 0, f"{name}: {report['id_flips']} ids differ from the plain version")
+    check(err == 0.0 and all(torch.equal(getattr(kern, f), getattr(plain, f)) for f in fields),
+          f"{name}: depth/barycentrics differ from the plain version by {err}")
 
     # the kernel alone (lists prebuilt) and the plain version
-    report["ms"] = time_ms(lambda: raster.rasterize(setup, width, height, depth_only=depth_only, lists=lists))
+    def launch():
+        return raster.rasterize(setup, width, height, depth_only=depth_only, lists=lists)
+
+    report["ms"] = time_ms(launch)
+    report["device_ms"] = device_ms(launch)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     raster.rasterize_plain(setup, width, height, depth_only=depth_only, lists=lists)
     end.record()
     torch.cuda.synchronize()
     report["plain_ms"] = start.elapsed_time(end)
-    report["bound_ms"], report["bound_by"] = raster_bound(setup, lists, height, width, depth_only)
+    report.update(raster_bound(lists, screen, height, width, depth_only))
     report["library_ms"] = None  # no single PyTorch call computes a raster
     print("compare " + json.dumps(report), flush=True)
     return report
@@ -278,36 +320,55 @@ def phase_compare_raster(device):
     chess, chess_lib = flagship()
     fgeometry, flagship_reports = both("flagship", chess, chess_lib)
     check(int(fgeometry.tri_valid.sum()) == 14_316, "the flagship is not 14,316 triangles")
-    return reports + dense_reports + flagship_reports
+
+    # the design's cases at flagship scale: depth ties and split lists
+    config = default_scene_config(chess, chess_lib)
+    params = upload_frame_params(pack_frame_params(chess, config.width / config.height), device)
+    ties, _ = raster_setups(fgeometry, params, config, copies=2)
+    design_reports = [
+        compare_raster("flagship_camera_ties", ties, config.padded_width, config.padded_height, False),
+        compare_raster("split_camera", split_case(device), 1920, 1088, False),
+    ]
+    return reports + dense_reports + flagship_reports + design_reports
 
 
 def phase_compare_gather(device):
-    """lane_gather vs its plain version at the bench's default size, on
-    the bench's seeded inputs."""
+    """lane_gather vs its plain version at each of GATHER_SIZES, on the
+    bench's seeded inputs: the default design (what ``lane_gather``
+    launches) and each design alone, bitwise, by CUDA events and on the
+    device; ``torch.take`` as a yardstick. Returns the reports by size."""
     from syzygy_tpu_torch.kernels import gather
     from syzygy_tpu_torch.tools import gather_bench as bench
 
-    n = bench.sample_count(2.0)
-    d = bench.bench_inputs(n)
-    flat = torch.from_numpy(d["lut"][:, :, 0].reshape(-1).copy()).to(device)
-    idx = gather.lut_index(torch.from_numpy(d["u"]).to(device), torch.from_numpy(d["v"]).to(device), bench.H, bench.W)
-    kern = gather.lane_gather(flat, idx)
-    plain = gather.lane_gather_plain(flat, idx)
-    torch.cuda.synchronize()
-    err = float((kern - plain).abs().max())
-    check(err == 0.0, f"lane_gather differs from its plain version by {err}")
-    idx64 = idx.long()
-    report = {
-        "name": "lane_gather", "samples": n, "max_abs_err": err,
-        "ms": time_ms(lambda: gather._launch(flat, idx)),  # the kernel alone, inputs checked above
-        "plain_ms": time_ms(lambda: gather.lane_gather_plain(flat, idx)),
-        "library_ms": time_ms(lambda: torch.take(flat, idx64)),  # a yardstick; the port never calls it
-        "device_ms": device_ms(lambda: gather._launch(flat, idx)),
-        "library_device_ms": device_ms(lambda: torch.take(flat, idx64)),
-    }
-    report["bound_ms"], report["bound_by"] = bound(4 * n + 4 * n + 4 * flat.numel(), 0)
-    print("compare " + json.dumps(report), flush=True)
-    return report
+    reports = []
+    for n in GATHER_SIZES:
+        d = bench.bench_inputs(n)
+        flat = torch.from_numpy(d["lut"][:, :, 0].reshape(-1).copy()).to(device)
+        u, v = torch.from_numpy(d["u"]).to(device), torch.from_numpy(d["v"]).to(device)
+        idx = gather.lut_index(u, v, bench.H, bench.W)
+        del d, u, v
+        plain = gather.lane_gather_plain(flat, idx)
+        kern = gather.lane_gather(flat, idx)
+        torch.cuda.synchronize()
+        err = float((kern - plain).abs().max())
+        check(torch.equal(kern, plain), f"lane_gather differs from its plain version by {err} at S = {n}")
+        idx64 = idx.long()
+        report = {"name": "lane_gather", "samples": n, "max_abs_err": err}
+        # the kernel alone, inputs checked above: the default, then each design
+        designs = (("", gather.DESIGN_DEFAULT), ("l2_", gather.DESIGN_L2),
+                   ("dsmem_", gather.DESIGN_DSMEM), ("split_", gather.DESIGN_SPLIT))
+        for prefix, design in designs:
+            check(torch.equal(gather._launch(flat, idx, design), plain), f"design {prefix[:-1]} differs at S = {n}")
+            report[prefix + "ms"] = time_ms(lambda: gather._launch(flat, idx, design))
+            report[prefix + "device_ms"] = device_ms(lambda: gather._launch(flat, idx, design))
+        report["plain_ms"] = time_ms(lambda: gather.lane_gather_plain(flat, idx))
+        report["library_ms"] = time_ms(lambda: torch.take(flat, idx64))  # a yardstick; the port never calls it
+        report["library_device_ms"] = device_ms(lambda: torch.take(flat, idx64))
+        report["bound_ms"], report["bound_by"] = bound(4 * n + 4 * n + 4 * flat.numel(), 0)
+        print("compare " + json.dumps(report), flush=True)
+        reports.append(report)
+        del flat, idx, idx64, plain, kern
+    return reports
 
 
 def phase_frames(name, scene, library, device, n_frames, warmup=2, dt_seconds=0.0):
@@ -435,7 +496,7 @@ def phase_flagship_golden(device):
         params = upload_frame_params(pack_frame_params(scene, w / h), dev)
         frames[dev.type] = render_frame(geometry, params, config).cpu().numpy()
         if dev == device:
-            setup, _ = raster_setups(geometry, params, config)
+            (setup, _), _ = raster_setups(geometry, params, config)
             tri = rasterize(setup, config.padded_width, config.padded_height).tri[:h, :w]
     card = frames[device.type]
     golden = np.load(FLAGSHIP_FRAME)["img"].astype(np.float32) / 65535.0
@@ -488,7 +549,7 @@ def main() -> int:
         for name in build.SOURCES:
             print(f"ptxas {name}: {build.ptxas_report(name)}", flush=True)
         compare = phase_compare_raster(device)
-        gather_report = phase_compare_gather(device)
+        gather_report = phase_compare_gather(device)[0]
         scene, library = default_scene()
         scene.tick(0.0)
         default_frames = phase_frames("default", scene, library, device, n_frames=8, dt_seconds=20.0)

@@ -6,6 +6,8 @@ of the source and its flags, at first use (so a checkout builds what it
 runs, nothing else). ptxas's register/shared-memory report of each build
 is kept beside the library as ``.so.log``. :func:`build` starts one
 ``nvcc`` per missing source, all at once, and waits for them together.
+:func:`load` binds each entry point's ctypes signature once, when it
+first loads a library, so a launch binds nothing.
 """
 
 from __future__ import annotations
@@ -27,6 +29,15 @@ SOURCES = {
     # must contract nothing else
     "raster": ("--fmad=false",),
     "gather": (),
+}
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# source name -> {entry point: (argtypes, restype)}
+ENTRY_POINTS = {
+    # coeffs, boxes, slots, offsets | tiles_y, tiles_x, oy, ox, depth_only |
+    # depth, tri, b0, b1 | device, stream
+    "raster": {"szg_raster": ([_P] * 4 + [_I] * 5 + [_P] * 4 + [_I, _P], _I)},
+    # table, table_n, idx, out, n, design, device, stream
+    "gather": {"szg_lane_gather": ([_P, _LL, _P, _P, _LL, _I, _I, _P], _I)},
 }
 _COMMON = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
@@ -93,9 +104,14 @@ def build(*names: str) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The bound library of source ``name``, built first if needed."""
+    """The library of source ``name``, built first if needed, its entry
+    points' signatures bound."""
     if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(build(name)[name])
+        lib = ctypes.CDLL(build(name)[name])
+        for entry, (argtypes, restype) in ENTRY_POINTS[name].items():
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = argtypes, restype
+        _loaded[name] = lib
     return _loaded[name]
 
 

@@ -9,8 +9,6 @@ sample. On a CUDA tensor :func:`lane_gather` launches
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from syzygy_tpu_torch.kernels import build
@@ -58,15 +56,22 @@ def _check(flat: torch.Tensor, idx: torch.Tensor) -> None:
             raise IndexError(f"indices span [{lo}, {hi}], the table holds {flat.numel()}")
 
 
-def _launch(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on checked inputs (see :func:`lane_gather`)."""
-    lib = build.load("gather")
-    lib.szg_lane_gather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
-    lib.szg_lane_gather.restype = ctypes.c_int
+# csrc/gather.cu's designs: the table read through L1/L2, in two CTAs'
+# distributed shared memory, or split between two CTAs that each serve
+# their own half; DESIGN_DEFAULT takes the one measured fastest for the
+# sample count (split from 4 M samples on, L2 below)
+DESIGN_DEFAULT, DESIGN_L2, DESIGN_DSMEM, DESIGN_SPLIT = 0, 1, 2, 3
+
+
+def _launch(flat: torch.Tensor, idx: torch.Tensor, design: int = DESIGN_DEFAULT) -> torch.Tensor:
+    """Launch the kernel on checked inputs (see :func:`lane_gather`) on the
+    current stream of the indices' device: no binding, no device guard."""
+    dev = idx.device.index
     out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
-    with torch.cuda.device(idx.device):
-        stream = torch.cuda.current_stream(idx.device).cuda_stream
-        err = lib.szg_lane_gather(flat.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), stream)
+    err = build.load("gather").szg_lane_gather(
+        flat.data_ptr(), flat.numel(), idx.data_ptr(), out.data_ptr(), idx.numel(), design, dev,
+        torch._C._cuda_getCurrentRawStream(dev),
+    )
     if err != 0:
         raise RuntimeError(f"lane gather launch failed: CUDA error {err}")
     LAUNCHES.lane_gather += 1

@@ -23,7 +23,6 @@ later slot wins a tie), front faces CW on screen (positive doubled area).
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -52,6 +51,10 @@ class TriSetup(NamedTuple):
     orig_tri: torch.Tensor  # (T2pad,) i32 -> original triangle id
     corner_bary: torch.Tensor  # (T2pad, 3, 2) corners' (b0, b1) wrt the original
     corner_w: torch.Tensor  # (T2pad, 3) clip w of the (possibly clipped) corners
+    # (T2pad, 4) i32 [x0, x1, y0, y1]: the inclusive target-local pixel range
+    # outside which the slot's f32 hit test cannot pass (:func:`pixel_boxes`;
+    # port-side, the reference has no counterpart)
+    pixel_box: torch.Tensor
 
 
 class VisibilityBuffer(NamedTuple):
@@ -231,12 +234,78 @@ def _finish_setup(cols, all_bary, w_all, grid_width, grid_height, grid_origin) -
     coeffs = torch.cat([cols[:, :10], packx[:, None], packy[:, None]], dim=-1)
     pad = t2_pad - t2
     ar = torch.arange(n_t, dtype=torch.int32, device=dev)
+    coeffs = torch.cat([coeffs, torch.zeros((pad, _COEFF_WIDTH), dtype=F32, device=dev)])
     return TriSetup(
-        coeffs=torch.cat([coeffs, torch.zeros((pad, _COEFF_WIDTH), dtype=F32, device=dev)]),
+        coeffs=coeffs,
         orig_tri=torch.cat([ar, ar, torch.zeros(pad, dtype=torch.int32, device=dev)]),
         corner_bary=torch.cat([all_bary, torch.zeros((pad, 3, 2), dtype=F32, device=dev)]),
         corner_w=torch.cat([w_all, torch.ones((pad, 3), dtype=F32, device=dev)]),
+        pixel_box=pixel_boxes(coeffs, grid_width, grid_height, grid_origin),
     )
+
+
+_U32 = 2.0**-24  # unit roundoff of f32
+_U64 = 2.0**-53  # unit roundoff of f64
+
+
+def pixel_boxes(coeffs: torch.Tensor, grid_width: int, grid_height: int, grid_origin=(0, 0)) -> torch.Tensor:
+    """Per slot, the inclusive target-local pixel box ``[x0, x1, y0, y1]``
+    (int32, (T2pad, 4)) outside which the raster's f32 hit test of the
+    slot cannot pass at any pixel centre of the target.
+
+    The kernel evaluates ``e0 = fl(fl(fma(be0, px, a0)) + fl(g0 * py))``
+    (and ``e1`` alike), ``e2 = fl(fl(1 - e0) - e1)``, and needs every
+    ``e_i >= 0``. With ``E_i`` the same forms in exact arithmetic over the
+    f32 coefficients (``E2 = 1 - E0 - E1``) and ``B_k = |a_k| + |be_k| X +
+    |g_k| Y`` (``X``, ``Y`` the largest global pixel coordinates of the
+    target), standard error analysis gives ``|e_k - E_k| <= (2u + u^2) B_k``
+    and ``|e2 - E2| <= |e0 - E0| + |e1 - E1| + u (2 + 2.1 B0 + 1.1 B1)``
+    (u = 2^-24), so a hit needs ``E_i >= -eps_i`` with ``eps_k = 3u B_k``
+    (+ 1e-30 for subnormal products) and ``eps_2 = eps_0 + eps_1 +
+    3u (1 + B0 + B1)``. That region is the triangle whose corners solve
+    two of the three equalities; their float64 solutions carry a bound of
+    their own rounding (``32 * 2^-53`` of the magnitudes summed, far above
+    the few roundings made, + 1e-6 px), added to the box.
+
+    Slivers (|area2| near 1e-12, coefficients up to ~1e12) get enormous
+    error terms, and a slot whose determinant is 0 or whose corners are
+    not finite gets the whole target: the box then covers every pixel of
+    the slot's listed tiles, which is the whole-tile evaluation the
+    reference runs. Invalid slots get an empty box (``x0 > x1``)."""
+    dev = coeffs.device
+    c = coeffs[:, :6].double()
+    a0, be0, g0, a1, be1, g1 = c.unbind(1)
+    oy, ox = float(grid_origin[0]), float(grid_origin[1])
+    x_max = max(abs(ox), abs(ox + grid_width))
+    y_max = max(abs(oy), abs(oy + grid_height))
+    bound0 = a0.abs() + be0.abs() * x_max + g0.abs() * y_max
+    bound1 = a1.abs() + be1.abs() * x_max + g1.abs() * y_max
+    eps0 = 3 * _U32 * bound0 + 1e-30
+    eps1 = 3 * _U32 * bound1 + 1e-30
+    eps2 = eps0 + eps1 + 3 * _U32 * (1 + bound0 + bound1)
+    # the corners: (E0, E1) = (-eps0, -eps1), (-eps0, 1+eps0+eps2), (1+eps1+eps2, -eps1)
+    t0 = torch.stack([-eps0, -eps0, 1 + eps1 + eps2])
+    t1 = torch.stack([-eps1, 1 + eps0 + eps2, -eps1])
+    det = be0 * g1 - g0 * be1  # f32 products are exact in f64
+    r0, r1 = t0 - a0, t1 - a1
+    x = (r0 * g1 - g0 * r1) / det
+    y = (be0 * r1 - be1 * r0) / det
+    m0, m1 = t0.abs() + a0.abs(), t1.abs() + a1.abs()
+    # + 1e-6 px covers the roundings of the pixel-centre shifts below
+    err_x = 32 * _U64 * (m0 * g1.abs() + g0.abs() * m1) / det.abs() + 1e-6
+    err_y = 32 * _U64 * (be0.abs() * m1 + be1.abs() * m0) / det.abs() + 1e-6
+    x_lo, x_hi = (x - err_x).amin(0), (x + err_x).amax(0)
+    y_lo, y_hi = (y - err_y).amin(0), (y + err_y).amax(0)
+    conditioned = (det != 0) & torch.isfinite(torch.stack([x_lo, x_hi, y_lo, y_hi])).all(0)
+    w, h = float(grid_width), float(grid_height)
+    # pixel (target-local) gx is tested at centre gx + ox + 0.5
+    bx0 = torch.where(conditioned, torch.ceil(x_lo - 0.5 - ox).clamp(0, w), 0.0)
+    bx1 = torch.where(conditioned, torch.floor(x_hi - 0.5 - ox).clamp(-1, w - 1), w - 1)
+    by0 = torch.where(conditioned, torch.ceil(y_lo - 0.5 - oy).clamp(0, h), 0.0)
+    by1 = torch.where(conditioned, torch.floor(y_hi - 0.5 - oy).clamp(-1, h - 1), h - 1)
+    box = torch.stack([bx0, bx1, by0, by1], dim=1).to(torch.int32)
+    empty = torch.tensor([1, 0, 1, 0], dtype=torch.int32, device=dev)
+    return torch.where((coeffs[:, 9] > 0)[:, None], box, empty).contiguous()
 
 
 def setup_triangles(
@@ -392,14 +461,6 @@ class LaunchCounts:
 LAUNCHES = LaunchCounts()
 
 
-def _kernel_library() -> ctypes.CDLL:
-    """``csrc/raster.cu``, built at first use, with its entry point bound."""
-    lib = build.load("raster")
-    lib.szg_raster.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
-    lib.szg_raster.restype = ctypes.c_int
-    return lib
-
-
 def _launch_kernel(setup: TriSetup, lists: TileLists, height, width, depth_only, origin):
     coeffs = setup.coeffs
     if coeffs.dtype != F32 or not coeffs.is_contiguous() or coeffs.shape[1] != _COEFF_WIDTH:
@@ -408,9 +469,13 @@ def _launch_kernel(setup: TriSetup, lists: TileLists, height, width, depth_only,
         raise ValueError("tile lists must be int32")
     if (lists.tiles_y * TILE_H, lists.tiles_x * TILE_W) != (height, width):
         raise ValueError(f"tile lists cover {lists.tiles_x}x{lists.tiles_y} tiles, not {width}x{height} px")
-    if lists.slots.device != coeffs.device or lists.offsets.device != coeffs.device:
-        raise ValueError("tile lists and coefficients must be on one device")
-    lib = _kernel_library()
+    box = setup.pixel_box
+    if box.dtype != torch.int32 or not box.is_contiguous() or tuple(box.shape) != (coeffs.shape[0], 4):
+        raise ValueError("pixel_box must be a contiguous (T2pad, 4) int32 tensor")
+    if box.data_ptr() % 16:
+        raise ValueError("pixel_box must start on a 16-byte boundary (the kernel reads int4 rows)")
+    if any(t.device != coeffs.device for t in (lists.slots, lists.offsets, box)):
+        raise ValueError("tile lists, pixel boxes and coefficients must be on one device")
     dev = coeffs.device
     depth = torch.empty((height, width), dtype=F32, device=dev)
     if depth_only:
@@ -420,18 +485,15 @@ def _launch_kernel(setup: TriSetup, lists: TileLists, height, width, depth_only,
         b0 = torch.empty((height, width), dtype=F32, device=dev)
         b1 = torch.empty((height, width), dtype=F32, device=dev)
     slots = lists.slots if lists.slots.numel() else torch.zeros(1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.szg_raster(
-            coeffs.data_ptr(), slots.data_ptr(), lists.offsets.data_ptr(),
-            lists.tiles_y, lists.tiles_x, int(origin[0]), int(origin[1]),
-            int(depth_only),
-            depth.data_ptr(),
-            tri.data_ptr() if tri is not None else None,
-            b0.data_ptr() if b0 is not None else None,
-            b1.data_ptr() if b1 is not None else None,
-            stream,
-        )
+    err = build.load("raster").szg_raster(
+        coeffs.data_ptr(), box.data_ptr(), slots.data_ptr(), lists.offsets.data_ptr(),
+        lists.tiles_y, lists.tiles_x, int(origin[0]), int(origin[1]), int(depth_only),
+        depth.data_ptr(),
+        tri.data_ptr() if tri is not None else None,
+        b0.data_ptr() if b0 is not None else None,
+        b1.data_ptr() if b1 is not None else None,
+        dev.index, torch._C._cuda_getCurrentRawStream(dev.index),
+    )
     if err != 0:
         raise RuntimeError(f"raster kernel launch failed: CUDA error {err}")
     if depth_only:

@@ -120,6 +120,18 @@ def forward_from_eulers(e: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _asin_xla(x: torch.Tensor) -> torch.Tensor:
+    """``asin`` as the reference's XLA computes it on the CPU: ``2 *
+    atan2(x, 1 + sqrt((1 - x) * (1 + x)))`` in f32, whose ``atan2`` is
+    glibc's ``atan2f`` (``torch.asin`` differs in the last bit on ~1/3 of
+    inputs). torch's ``atan2`` calls the same ``atan2f`` for the elements
+    of a CPU tensor outside its vectorized loop, i.e. for a single vector
+    such as a camera's forward; its vectorized ``atan2`` can differ from
+    it in the last bit."""
+    half = torch.atan2(x, sqrt_rn((1.0 - x) * (x + 1.0)) + 1.0)
+    return half + half
+
+
 def eulers_from_forward(forward: torch.Tensor) -> torch.Tensor:
     """``eulersFromForward`` (``geometryhelpers.cpp:107-145``): (pitch, 0,
     yaw); a degenerate zero-length input maps to zeros."""
@@ -130,7 +142,7 @@ def eulers_from_forward(forward: torch.Tensor) -> torch.Tensor:
     dot_forward = torch.sum(fn * world_forward(dev), dim=-1)
     dot_right = torch.sum(fn * world_right(dev), dim=-1)
     dot_up = torch.sum(fn * world_up(dev), dim=-1)
-    pitch = torch.asin(torch.clamp(dot_up, -1.0, 1.0))
+    pitch = _asin_xla(torch.clamp(dot_up, -1.0, 1.0))
     yaw = torch.atan2(dot_right, dot_forward)
     eulers = torch.stack([pitch, torch.zeros_like(pitch), yaw], dim=-1)
     return torch.where(safe, eulers, 0.0)

@@ -300,3 +300,29 @@ def test_kernel_matches_plain(cuda):
     assert LAUNCHES.lane_gather == before + 1
     torch.cuda.synchronize()
     assert torch.equal(out, lane_gather_plain(flat, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1_000_003, 2**24 + 3])
+@pytest.mark.parametrize("design", ["default", "l2", "dsmem", "split"])
+def test_kernel_matches_plain_sizes(cuda, n, design):
+    """Bitwise in each design of ``csrc/gather.cu``, at a sample count that
+    is not a multiple of the 4-sample vectors and at one whose indices and
+    outputs (2 x 67 MB) exceed the 50 MB L2; and on an index view that
+    starts off a 16-byte boundary (the scalar path). One counted launch
+    each."""
+    from syzygy_tpu_torch.kernels import gather
+
+    rng = np.random.default_rng(3)
+    flat = torch.from_numpy(rng.random(H * W, dtype=np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, H * W, n + 1, dtype=np.int32)).to(cuda)
+    code = {
+        "default": gather.DESIGN_DEFAULT, "l2": gather.DESIGN_L2,
+        "dsmem": gather.DESIGN_DSMEM, "split": gather.DESIGN_SPLIT,
+    }[design]
+    for view in (idx[:n], idx[1:]):
+        before = LAUNCHES.lane_gather
+        out = gather._launch(flat, view, code)
+        assert LAUNCHES.lane_gather == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(out, lane_gather_plain(flat, view))

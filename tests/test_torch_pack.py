@@ -186,3 +186,29 @@ def test_light_stacks_match_reference():
     for name in r_spots._fields:
         a, b = getattr(p_spots, name).numpy(), np.asarray(getattr(r_spots, name))
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6 * max(1.0, float(np.abs(b).max())), err_msg=name)
+
+
+@pytest.mark.parametrize("framing", ["flagship", "dense", "seeded"])
+def test_eulers_from_forward_bitwise(framing):
+    """Tolerance: exact. The camera framings of ``bench.py`` (the chess
+    flagship's (13, -8, -14) -> (0, -1, 0), the dense field's (18, -16,
+    -22) -> (0, -6, 0)) and 64 seeded forward vectors, one at a time as a
+    camera is framed: the port's (pitch, 0, yaw) carry the reference's
+    bits. Its pitch is XLA's ``asin`` decomposition, 2 * atan2(x, 1 +
+    sqrt((1 - x)(1 + x))), on the same ``atan2f``."""
+    import jax.numpy as jnp
+
+    from syzygy_tpu.math.geometry import eulers_from_forward as ref
+
+    from syzygy_tpu_torch.math.geometry import eulers_from_forward as port
+
+    if framing == "flagship":
+        forwards = [np.float32([0.0, -1.0, 0.0]) - np.float32([13.0, -8.0, -14.0])]
+    elif framing == "dense":
+        forwards = [np.float32([0.0, -6.0, 0.0]) - np.float32([18.0, -16.0, -22.0])]
+    else:
+        forwards = list(np.random.default_rng(8).normal(size=(64, 3)).astype(np.float32) * 10)
+    for f in forwards:
+        expect = np.asarray(ref(jnp.asarray(f)))
+        got = port(torch.from_numpy(np.ascontiguousarray(f))).numpy()
+        np.testing.assert_array_equal(got.view(np.int32), expect.view(np.int32), err_msg=str(f))
