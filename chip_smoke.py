@@ -106,21 +106,25 @@ def time_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = REPS) -> float:
+def device_ms(fn, reps: int = REPS, attempts: int = 3) -> float:
     """Mean summed device time (ms) of the kernels ``fn`` launches, from
     ``torch.profiler``'s CUDA activity over ``reps`` calls: the kernels
-    alone, without the host's time between launches."""
+    alone, without the host's time between launches. A trace that comes
+    back without kernel events (the tracer dropped them) is taken again,
+    up to ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(bool(kernels), "the profiler saw no kernel")
-    return sum(e.time_range.elapsed_us() for e in kernels) / 1000.0 / reps
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            return sum(e.time_range.elapsed_us() for e in kernels) / 1000.0 / reps
+    raise SmokeFailure(f"the profiler saw no kernel in {attempts} traces")
 
 
 def default_scene_config(scene, library, **overrides):
@@ -355,8 +359,7 @@ def phase_compare_gather(device):
         idx64 = idx.long()
         report = {"name": "lane_gather", "samples": n, "max_abs_err": err}
         # the kernel alone, inputs checked above: the default, then each design
-        designs = (("", gather.DESIGN_DEFAULT), ("l2_", gather.DESIGN_L2),
-                   ("dsmem_", gather.DESIGN_DSMEM), ("split_", gather.DESIGN_SPLIT))
+        designs = (("", gather.DESIGN_DEFAULT), ("l2_", gather.DESIGN_L2), ("split_", gather.DESIGN_SPLIT))
         for prefix, design in designs:
             check(torch.equal(gather._launch(flat, idx, design), plain), f"design {prefix[:-1]} differs at S = {n}")
             report[prefix + "ms"] = time_ms(lambda: gather._launch(flat, idx, design))

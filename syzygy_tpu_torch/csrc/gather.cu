@@ -9,36 +9,32 @@
 // Bound on the H100: bytes. 4 B of idx + 4 B of out per sample + the
 // table once: 4S + 4S + 262,144 B (16.26 MB at S = 1,999,872, 4.85 us at
 // 3.35 TB/s; 268.7 MB at S = 33,554,432, 80.2 us); no arithmetic to speak
-// of. Two designs, both persistent grids walking the sample stream in
-// 16-byte vectors (int4 indices in, float4 samples out, the streaming
-// loads and stores marked evict-first so the table keeps the caches):
+// of. Two designs, both persistent grids walking the sample stream:
 //
 // DESIGN_L2: the table through the read-only path (__ldg). A block has at
 // most 227 KB of shared memory, so the 256 KB table cannot sit in one; its
 // lines stay in L1/L2 after the first touches, and each random 4-byte
-// lookup costs a 32-byte sector from L1 or L2. Four index vectors (16
-// samples) per thread are in flight before the lookups.
+// lookup costs a 32-byte sector from L1 or L2, about one lookup per clock
+// per SM. Indices move in as int4 and samples out as float4 (evict-first,
+// so the table keeps the caches), four vectors (16 samples) per thread in
+// flight before the lookups.
 //
-// DESIGN_DSMEM: the table in distributed shared memory. A cluster of 2
-// CTAs holds one half of the table each (128 KB of dynamic shared memory
-// for the 256 KB LUT), staged once with 16-byte loads; each lookup reads
-// its own CTA's half or the partner's through the cluster's shared-memory
-// window, so after staging no lookup touches L2. Serves tables of up to
-// 2 x 227 KB; larger tables take DESIGN_L2.
-//
-// DESIGN_SPLIT: the table split as in DESIGN_DSMEM, but each CTA of the
-// pair serves only the lookups into its own half, from its own shared
-// memory: both CTAs read every index of the chunks the pair walks (the
-// second read hits L2, the pair runs side by side) and each writes the
-// samples of its half (coalesced 4-byte stores that L2 merges into whole
-// sectors). No lookup leaves the SM.
+// DESIGN_SPLIT: a cluster of 2 CTAs holds one half of the table each (128
+// KB of dynamic shared memory for the 256 KB LUT, staged once with 16-byte
+// loads), and each CTA serves only the lookups into its own half, from
+// its own shared memory: both CTAs read every index of the chunks the
+// pair walks (the second read hits L2, the pair runs side by side) and
+// each writes the samples of its half (coalesced 4-byte stores that L2
+// merges into whole sectors). No lookup leaves the SM. Serves tables of up
+// to 2 x 227 KB. (Reading the partner's half through distributed shared
+// memory instead measured slower than DESIGN_L2 at both sizes: PERF.md.)
 //
 // Which design a launch takes is the caller's. DESIGN_DEFAULT, the one
-// kernels/gather.py::lane_gather takes, is chosen by measurement (chip_smoke
-// on the H100, CUDA events per launch): DESIGN_SPLIT from SPLIT_MIN_SAMPLES
-// samples on, DESIGN_L2 below them, where the split design's fixed cost per
-// launch (a cluster launch with 128 KB of shared memory, the staging) loses
-// to its faster stream; DESIGN_DSMEM lost at both sizes measured.
+// kernels/gather.py::lane_gather takes, is DESIGN_SPLIT wherever the table
+// fits, DESIGN_L2 elsewhere: on the H100 the split design took 0.72x the
+// L2 design's device time at 2.0 M samples and 0.77x at 33.6 M (chip_smoke,
+// torch.profiler); by CUDA events at 2.0 M both are bound by the host's
+// issue time per launch.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -50,19 +46,13 @@ namespace {
 
 constexpr int DESIGN_DEFAULT = 0;
 constexpr int DESIGN_L2 = 1;
-constexpr int DESIGN_DSMEM = 2;
-constexpr int DESIGN_SPLIT = 3;
-// ~11 us + 3.97 ns/sample (split) against ~5 us + 5.40 ns/sample (L2) by
-// events at 2.0 M and 33.6 M samples: they cross near 4 M
-constexpr long long SPLIT_MIN_SAMPLES = 1LL << 22;
+constexpr int DESIGN_SPLIT = 2;
 
 constexpr int L2_THREADS = 256;
 constexpr int L2_UNROLL = 4;  // index vectors per thread in flight
 constexpr int L2_BLOCKS_PER_SM = 8;
 
-constexpr int DS_THREADS = 1024;
-constexpr int DS_UNROLL = 2;
-constexpr int DS_CLUSTER = 2;
+constexpr int SP_CLUSTER = 2;
 constexpr int SP_THREADS = 1024;
 constexpr int SP_UNROLL = 4;
 constexpr int MAX_SMEM = 232448;  // a block's shared memory on the H100 (227 KB)
@@ -80,49 +70,41 @@ template <> struct Vec<1> {
   using F = float;
 };
 
-template <typename Lookup>
-__device__ __forceinline__ float4 lookup4(const int4& i, Lookup look) {
-  return make_float4(look(i.x), look(i.y), look(i.z), look(i.w));
+__device__ __forceinline__ float4 lookup(const float* __restrict__ table, const int4& i) {
+  return make_float4(__ldg(table + i.x), __ldg(table + i.y), __ldg(table + i.z), __ldg(table + i.w));
 }
-template <typename Lookup>
-__device__ __forceinline__ float lookup4(int i, Lookup look) {
-  return look(i);
+__device__ __forceinline__ float lookup(const float* __restrict__ table, int i) {
+  return __ldg(table + i);
 }
 
-// One persistent pass over the sample stream, UNROLL vectors per thread
+// A persistent pass over the sample stream, L2_UNROLL vectors per thread
 // per step; the samples past the last whole vector go to block 0.
-template <int VEC, int THREADS, int UNROLL, typename Lookup>
-__device__ __forceinline__ void stream(const int* __restrict__ idx, float* __restrict__ out,
-                                       int64_t n, Lookup look) {
+template <int VEC>
+__global__ void __launch_bounds__(L2_THREADS)
+lane_gather_l2(const float* __restrict__ table, const int* __restrict__ idx,
+               float* __restrict__ out, int64_t n) {
   using I = typename Vec<VEC>::I;
   using F = typename Vec<VEC>::F;
   const I* iv = reinterpret_cast<const I*>(idx);
   F* ov = reinterpret_cast<F*>(out);
   const int64_t n_vec = n / VEC;
-  const int64_t step = (int64_t)gridDim.x * THREADS * UNROLL;
-  for (int64_t v0 = (int64_t)blockIdx.x * THREADS * UNROLL + threadIdx.x; v0 < n_vec; v0 += step) {
-    I lane_idx[UNROLL];
+  const int64_t step = (int64_t)gridDim.x * L2_THREADS * L2_UNROLL;
+  for (int64_t v0 = (int64_t)blockIdx.x * L2_THREADS * L2_UNROLL + threadIdx.x; v0 < n_vec; v0 += step) {
+    I lane_idx[L2_UNROLL];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {  // every index load in flight first
-      const int64_t v = v0 + (int64_t)u * THREADS;
+    for (int u = 0; u < L2_UNROLL; ++u) {  // every index load in flight first
+      const int64_t v = v0 + (int64_t)u * L2_THREADS;
       if (v < n_vec) lane_idx[u] = __ldcs(iv + v);
     }
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int64_t v = v0 + (int64_t)u * THREADS;
-      if (v < n_vec) __stcs(ov + v, lookup4(lane_idx[u], look));
+    for (int u = 0; u < L2_UNROLL; ++u) {
+      const int64_t v = v0 + (int64_t)u * L2_THREADS;
+      if (v < n_vec) __stcs(ov + v, lookup(table, lane_idx[u]));
     }
   }
   if (VEC > 1 && blockIdx.x == 0) {
-    for (int64_t i = n_vec * VEC + threadIdx.x; i < n; i += THREADS) out[i] = look(idx[i]);
+    for (int64_t i = n_vec * VEC + threadIdx.x; i < n; i += L2_THREADS) out[i] = __ldg(table + idx[i]);
   }
-}
-
-template <int VEC>
-__global__ void __launch_bounds__(L2_THREADS)
-lane_gather_l2(const float* __restrict__ table, const int* __restrict__ idx,
-               float* __restrict__ out, int64_t n) {
-  stream<VEC, L2_THREADS, L2_UNROLL>(idx, out, n, [=](int i) { return __ldg(table + i); });
 }
 
 // Copies table[first, first + count) into `part` (first % 4 == 0).
@@ -135,24 +117,7 @@ __device__ __forceinline__ void stage_half(float* part, const float* __restrict_
   for (int i = count / 4 * 4 + threadIdx.x; i < count; i += blockDim.x) part[i] = __ldg(table + first + i);
 }
 
-template <int VEC>
-__global__ void __cluster_dims__(DS_CLUSTER, 1, 1) __launch_bounds__(DS_THREADS)
-lane_gather_dsmem(const float* __restrict__ table, int half, int table_n,
-                  const int* __restrict__ idx, float* __restrict__ out, int64_t n) {
-  extern __shared__ __align__(16) float part[];  // table[rank * half, rank * half + half)
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  stage_half(part, table, rank * half, min(half, table_n - rank * half));
-  cluster.sync();  // both halves staged
-  const float* lo = cluster.map_shared_rank(part, 0);
-  const float* hi = cluster.map_shared_rank(part, 1);
-  stream<VEC, DS_THREADS, DS_UNROLL>(idx, out, n, [=](int i) {
-    return *(i < half ? lo + i : hi + (i - half));
-  });
-  cluster.sync();  // the partner may still read this CTA's half
-}
-
-__global__ void __cluster_dims__(DS_CLUSTER, 1, 1) __launch_bounds__(SP_THREADS)
+__global__ void __cluster_dims__(SP_CLUSTER, 1, 1) __launch_bounds__(SP_THREADS)
 lane_gather_split(const float* __restrict__ table, int half, int table_n,
                   const int* __restrict__ idx, float* __restrict__ out, int64_t n) {
   extern __shared__ __align__(16) float part[];  // table[first, first + count)
@@ -160,7 +125,7 @@ lane_gather_split(const float* __restrict__ table, int half, int table_n,
   const int count = min(half, table_n - first);
   stage_half(part, table, first, count);
   __syncthreads();
-  const int64_t pair = blockIdx.x / DS_CLUSTER, pairs = gridDim.x / DS_CLUSTER;
+  const int64_t pair = blockIdx.x / SP_CLUSTER, pairs = gridDim.x / SP_CLUSTER;
   const int64_t step = pairs * SP_THREADS * SP_UNROLL;
   for (int64_t i0 = pair * SP_THREADS * SP_UNROLL + threadIdx.x; i0 < n; i0 += step) {
     int lane_idx[SP_UNROLL];
@@ -210,24 +175,6 @@ int launch_l2(int device, cudaStream_t s, const float* table, const int* idx, fl
   return (int)cudaGetLastError();
 }
 
-template <int VEC>
-int launch_dsmem(int device, cudaStream_t s, const float* table, int table_n, const int* idx,
-                 float* out, int64_t n) {
-  static bool ready[MAX_DEVICES] = {};  // the shared-memory opt-in, once per device
-  const int half = ((table_n + 1) / 2 + 3) / 4 * 4;
-  const int bytes = half * (int)sizeof(float);
-  if (!ready[device]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        lane_gather_dsmem<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    ready[device] = true;
-  }
-  const int64_t clusters = blocks_for(n, VEC, DS_CLUSTER * DS_THREADS * DS_UNROLL, sm_count(device) / DS_CLUSTER);
-  lane_gather_dsmem<VEC><<<(unsigned)(clusters * DS_CLUSTER), DS_THREADS, bytes, s>>>(
-      table, half, table_n, idx, out, n);
-  return (int)cudaGetLastError();
-}
-
 int launch_split(int device, cudaStream_t s, const float* table, int table_n, const int* idx,
                  float* out, int64_t n) {
   static bool ready[MAX_DEVICES] = {};  // the shared-memory opt-in, once per device
@@ -238,8 +185,8 @@ int launch_split(int device, cudaStream_t s, const float* table, int table_n, co
     if (err != cudaSuccess) return (int)err;
     ready[device] = true;
   }
-  const int64_t pairs = blocks_for(n, 1, SP_THREADS * SP_UNROLL, sm_count(device) / DS_CLUSTER);
-  lane_gather_split<<<(unsigned)(pairs * DS_CLUSTER), SP_THREADS, half * (int)sizeof(float), s>>>(
+  const int64_t pairs = blocks_for(n, 1, SP_THREADS * SP_UNROLL, sm_count(device) / SP_CLUSTER);
+  lane_gather_split<<<(unsigned)(pairs * SP_CLUSTER), SP_THREADS, half * (int)sizeof(float), s>>>(
       table, half, table_n, idx, out, n);
   return (int)cudaGetLastError();
 }
@@ -247,9 +194,9 @@ int launch_split(int device, cudaStream_t s, const float* table, int table_n, co
 }  // namespace
 
 // Plain C entry point (bound with ctypes). The caller has checked that
-// every index lies in [0, table_n). `design` is DESIGN_DEFAULT, DESIGN_L2,
-// DESIGN_DSMEM or DESIGN_SPLIT; the last two refuse (cudaErrorInvalidValue)
-// a table that two CTAs cannot hold or that starts off a 16-byte boundary.
+// every index lies in [0, table_n). `design` is DESIGN_DEFAULT, DESIGN_L2
+// or DESIGN_SPLIT; DESIGN_SPLIT refuses (cudaErrorInvalidValue) a table
+// that two CTAs cannot hold or that starts off a 16-byte boundary.
 // Launches on `stream` of `device`, allocates nothing, and returns the
 // launch's CUDA error (0 when it was accepted).
 extern "C" int szg_lane_gather(const float* table, long long table_n, const int* idx, float* out,
@@ -261,14 +208,9 @@ extern "C" int szg_lane_gather(const float* table, long long table_n, const int*
   const bool aligned = ((uintptr_t)idx % 16 == 0) && ((uintptr_t)out % 16 == 0);
   const bool fits = table_n > 0 && ((table_n + 1) / 2 + 3) / 4 * 4 * (long long)sizeof(float) <= MAX_SMEM &&
                     (uintptr_t)table % 16 == 0;
-  if (design == DESIGN_DEFAULT) design = fits && n >= SPLIT_MIN_SAMPLES ? DESIGN_SPLIT : DESIGN_L2;
+  if (design == DESIGN_DEFAULT) design = fits ? DESIGN_SPLIT : DESIGN_L2;
   if (design == DESIGN_SPLIT) {
     return fits ? launch_split(device, s, table, (int)table_n, idx, out, n) : (int)cudaErrorInvalidValue;
-  }
-  if (design == DESIGN_DSMEM) {
-    if (!fits) return (int)cudaErrorInvalidValue;
-    return aligned ? launch_dsmem<4>(device, s, table, (int)table_n, idx, out, n)
-                   : launch_dsmem<1>(device, s, table, (int)table_n, idx, out, n);
   }
   if (design != DESIGN_L2) return (int)cudaErrorInvalidValue;
   return aligned ? launch_l2<4>(device, s, table, idx, out, n) : launch_l2<1>(device, s, table, idx, out, n);

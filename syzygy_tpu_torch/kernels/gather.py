@@ -56,11 +56,10 @@ def _check(flat: torch.Tensor, idx: torch.Tensor) -> None:
             raise IndexError(f"indices span [{lo}, {hi}], the table holds {flat.numel()}")
 
 
-# csrc/gather.cu's designs: the table read through L1/L2, in two CTAs'
-# distributed shared memory, or split between two CTAs that each serve
-# their own half; DESIGN_DEFAULT takes the one measured fastest for the
-# sample count (split from 4 M samples on, L2 below)
-DESIGN_DEFAULT, DESIGN_L2, DESIGN_DSMEM, DESIGN_SPLIT = 0, 1, 2, 3
+# csrc/gather.cu's designs: the table read through L1/L2, or split between
+# two CTAs that each serve their own half; DESIGN_DEFAULT takes the split
+# design (measured faster) wherever the table fits two CTAs' shared memory
+DESIGN_DEFAULT, DESIGN_L2, DESIGN_SPLIT = 0, 1, 2
 
 
 def _launch(flat: torch.Tensor, idx: torch.Tensor, design: int = DESIGN_DEFAULT) -> torch.Tensor:

@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from syzygy_tpu_torch.kernels import build
+from syzygy_tpu_torch.math.geometry import fma32
 
 TILE_H = 64
 TILE_W = 128
@@ -79,17 +80,12 @@ class TileLists(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def _fma(a, b, c):
-    """f32 fused multiply-add ``a * b + c`` with one rounding (the f32
-    product is exact in float64, the f64 sum is rounded once more to f32).
-
-    The reference's setup and raster run under XLA CPU jit, where LLVM
-    contracts some ``a * b + c`` into fused multiply-adds; the port puts
-    fmas at the same places so coefficient rows and plane evaluations match
-    bitwise, which keeps knife-edge pixels (edges through pixel centers) on
-    the same side. (An f64 sum that lands exactly on an f32 rounding tie
-    can round twice; that is rarer than 1 in 2^29 evaluations.)"""
-    return (a.double() * b.double() + c.double()).float()
+# The reference's setup and raster run under XLA CPU jit, where LLVM
+# contracts some ``a * b + c`` into fused multiply-adds; the port puts fmas
+# at the same places so coefficient rows and plane evaluations match
+# bitwise, which keeps knife-edge pixels (edges through pixel centers) on
+# the same side.
+_fma = fma32
 
 
 def _rotate_corners(arr: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:

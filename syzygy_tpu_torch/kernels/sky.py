@@ -19,11 +19,12 @@ from syzygy_tpu_torch.kernels.atmosphere import (
     PI,
     luminance_scattering_integral,
     ray_sphere_intersect,
+    ray_sphere_intersect_fma,
     safe_sqrt,
     sample_lut_bilinear,
     sample_transmittance_ray,
-    sample_transmittance_rmu,
     sample_transmittance_segment,
+    transmittance_rmu_to_uv_fma,
 )
 from syzygy_tpu_torch.kernels.lighting import (
     PBRTexel,
@@ -37,7 +38,7 @@ from syzygy_tpu_torch.kernels.lighting import (
     specular_brdf,
 )
 from syzygy_tpu_torch.kernels.resolve import GBuffer
-from syzygy_tpu_torch.math.geometry import matmul4, matvec, sqrt_rn, vec_norm
+from syzygy_tpu_torch.math.geometry import dot3_fma, fma32, matmul4, matvec, sqrt_rn, vec_norm
 from syzygy_tpu_torch.scene.atmosphere import AtmospherePacked
 from syzygy_tpu_torch.scene.camera import CameraPacked
 from syzygy_tpu_torch.scene.lights import DirectionalLight
@@ -46,7 +47,9 @@ F32 = torch.float32
 
 
 def _norm3(v):
-    return sqrt_rn(torch.clamp(torch.sum(v * v, dim=-1, keepdim=True), min=1e-20))
+    """``|v|`` over the last axis (kept), the squares summed as the
+    reference's compiled fused multiply-add chain."""
+    return sqrt_rn(torch.clamp(dot3_fma(v, v)[..., None], min=1e-20))
 
 
 def _flip(device):
@@ -135,8 +138,13 @@ def sample_environment_shared(atmo, transmittance_lut, skyview_lut, position, di
     """``sampleEnvironmentLuminanceTransfer`` (``camera.comp:286-301``) with
     the ground (planet hit) and sky (miss) branches sharing one skyview and
     one transmittance sample (``sky.py:264-362``) -> (luminance, sun disk)."""
-    hit, dist = _hit_planet(atmo, position, direction)
-    surface = position + dist[..., None] * direction
+    # with the reference's compiled arithmetic: the ground's glint (specular
+    # power 160), its planet hit and its transmittance near the horizon
+    # amplify each rounding of these, so plain forms miss the reference by
+    # more than the pass's tolerance there
+    hit, dist, _ = ray_sphere_intersect_fma(position, direction, atmo.planet_radius_mm)
+    hit = hit & (dist > 0.0)
+    surface = fma32(dist[..., None], direction, position)
 
     h = _lut_height(skyview_lut)
     u, v = _skyview_uv(atmo, position, direction)
@@ -149,22 +157,25 @@ def sample_environment_shared(atmo, transmittance_lut, skyview_lut, position, di
     mu_srf = torch.sum(surface * ld_b, dim=-1) / (r_srf * _norm3(ld_b)[..., 0])
     r_ray = _norm3(position)[..., 0]
     mu_ray = torch.sum(position * direction, dim=-1) / (r_ray * _norm3(direction)[..., 0])
-    t_shared = sample_transmittance_rmu(
-        transmittance_lut, atmo, torch.where(hit, r_srf, r_ray), torch.where(hit, mu_srf, mu_ray)
-    )
+    t_lut_h, t_lut_w = transmittance_lut.shape[0], transmittance_lut.shape[1]
+    t_shared = sample_lut_bilinear(transmittance_lut, *transmittance_rmu_to_uv_fma(
+        atmo, torch.where(hit, r_srf, r_ray), torch.where(hit, mu_srf, mu_ray), t_lut_w, t_lut_h
+    ))
 
     # ground shading (sampleGround, camera.comp:203-235)
     surface_normal = surface / _norm3(surface)
-    halfway = _normalize(light_dir + (-direction))
+    halfway = light_dir + (-direction)
+    halfway = halfway / _norm3(halfway)
+    ld_b = light_dir.expand(halfway.shape)
     spec_power = 160.0
-    microfacet = torch.pow(torch.clamp(_dot1(halfway, surface_normal), 0.0, 1.0), spec_power)
+    microfacet = torch.pow(torch.clamp(dot3_fma(halfway, surface_normal)[..., None], 0.0, 1.0), spec_power)
     specular = (spec_power + 2.0) / 8.0 * microfacet
     diffuse = 0.4 / PI
     fresnel = 0.04 + (1.0 - 0.04) * torch.pow(
-        1.0 - torch.clamp(_dot1(halfway, light_dir), 0.0, 1.0), 5.0
+        1.0 - torch.clamp(dot3_fma(halfway, ld_b)[..., None], 0.0, 1.0), 5.0
     )
     albedo = diffuse * (1.0 - fresnel) + specular * fresnel
-    nl = torch.clamp(torch.sum(surface_normal * light_dir, dim=-1, keepdim=True), 0.0, 1.0)
+    nl = torch.clamp(dot3_fma(surface_normal, ld_b)[..., None], 0.0, 1.0)
     surface_lum = t_shared * albedo * nl
     if tseg_rows is not None:
         t_surface = _sample_tseg_rows(tseg_rows, v_sel)

@@ -28,6 +28,22 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).to(x.dtype)
 
 
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 fused multiply-add ``a * b + c`` with one rounding (the f32
+    product is exact in float64, the float64 sum is rounded once more to
+    f32; a sum that lands exactly on an f32 rounding tie can round twice,
+    rarer than 1 in 2^29)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def dot3_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``sum(a * b, -1)`` over 3 components as the reference's XLA CPU
+    compiles a short reduction: ``fma(a2, b2, fma(a1, b1, a0 * b0))``
+    (torch's sum of rounded products can differ from it in the last
+    bit)."""
+    return fma32(a[..., 2], b[..., 2], fma32(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
+
+
 def vec_norm(v: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
     """Euclidean norm as ``sqrt(sum(v * v))`` (``jnp.linalg.norm``'s form)."""
     return sqrt_rn(torch.sum(v * v, dim=dim, keepdim=keepdim))
@@ -123,8 +139,8 @@ def forward_from_eulers(e: torch.Tensor) -> torch.Tensor:
 def _asin_xla(x: torch.Tensor) -> torch.Tensor:
     """``asin`` as the reference's XLA computes it on the CPU: ``2 *
     atan2(x, 1 + sqrt((1 - x) * (1 + x)))`` in f32, whose ``atan2`` is
-    glibc's ``atan2f`` (``torch.asin`` differs in the last bit on ~1/3 of
-    inputs). torch's ``atan2`` calls the same ``atan2f`` for the elements
+    glibc's ``atan2f`` (``torch.asin`` can differ from it in the last
+    bit). torch's ``atan2`` calls the same ``atan2f`` for the elements
     of a CPU tensor outside its vectorized loop, i.e. for a single vector
     such as a camera's forward; its vectorized ``atan2`` can differ from
     it in the last bit."""

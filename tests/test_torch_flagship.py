@@ -282,8 +282,10 @@ def test_sky_camera_pass_metallic_bounce_matches_reference():
     # the low sun's glint on the planet's ground below the horizon (HDR,
     # clamped to 1 in the frame): sampleGround's microfacet term
     # pow(dot(halfway, normal), 160) turns a last-bit difference of the dot
-    # into ~160x that relative error; relative 2e-4
-    np.testing.assert_allclose(port[~resolved], ref[~resolved], rtol=2e-4, atol=0)
+    # into ~160x that relative error, and the grazing ray's planet hit and
+    # transmittance cancel catastrophically; with the reference's compiled
+    # arithmetic there (fused multiply-add chains and contractions): 1e-5
+    np.testing.assert_allclose(port[~resolved], ref[~resolved], rtol=1e-5, atol=0)
     off = port_pass(
         t(lit), t(vis.depth), GBuffer(*[t(x) for x in gbuffer]), pstate.camera, pstate.atmosphere,
         t(t_lut), port_q8, type(pstate.directional_lights)(*[x[0] for x in pstate.directional_lights]),
