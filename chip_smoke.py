@@ -19,10 +19,10 @@ no result line):
    map, and the chess flagship's 1920x1088 camera and 1024^2 sun map, then
    two cases of the kernel's design at that scale (the flagship camera
    with every triangle twice: coplanar depth ties; 20,000 small triangles
-   on 4 tiles: lists cut across a tile's 8 CTAs); the lane gather in each
-   design at S = 1,999,872 (the bench's default) and S = 33,554,432 (its
-   indices and outputs exceed the L2) on the gather bench's seeded inputs,
-   with ``torch.take`` as a yardstick;
+   on 4 tiles: lists cut across a tile's 8 CTAs); the lane gather at
+   S = 1,999,872 (the bench's default) and S = 33,554,432 (its indices and
+   outputs exceed the L2) on the gather bench's seeded inputs, with
+   ``torch.take`` as a yardstick;
 4. the main paths, each with the launch counters set to 0 just before and
    read just after: 8 frames of the default scene and 6 of the chess
    flagship through ``renderer.frame.render_frame`` at the default
@@ -63,6 +63,7 @@ FP32_OPS_PER_S = 67e12
 # csrc/raster.cu per (pixel, slot): 2 mul + 4 add/sub + 2 fma (2 each) + 6 compares
 RASTER_OPS_PER_TEST = 16
 REPS = 20
+TRACE_ATTEMPTS = 3  # device_ms's traces before it gives up
 GATHER_SIZES = (1_999_872, 33_554_432)  # the bench's default S; 2^25 (268 MB of idx + out)
 
 # the visibility class of the golden comparison (tests/test_raster.py rules)
@@ -106,17 +107,17 @@ def time_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = REPS, attempts: int = 3) -> float:
+def device_ms(fn, reps: int = REPS) -> float:
     """Mean summed device time (ms) of the kernels ``fn`` launches, from
     ``torch.profiler``'s CUDA activity over ``reps`` calls: the kernels
     alone, without the host's time between launches. A trace that comes
     back without kernel events (the tracer dropped them) is taken again,
-    up to ``attempts`` times."""
+    up to ``TRACE_ATTEMPTS`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    for _ in range(TRACE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -124,7 +125,7 @@ def device_ms(fn, reps: int = REPS, attempts: int = 3) -> float:
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         if kernels:
             return sum(e.time_range.elapsed_us() for e in kernels) / 1000.0 / reps
-    raise SmokeFailure(f"the profiler saw no kernel in {attempts} traces")
+    raise SmokeFailure(f"the profiler saw no kernel in {TRACE_ATTEMPTS} traces")
 
 
 def default_scene_config(scene, library, **overrides):
@@ -338,9 +339,9 @@ def phase_compare_raster(device):
 
 def phase_compare_gather(device):
     """lane_gather vs its plain version at each of GATHER_SIZES, on the
-    bench's seeded inputs: the default design (what ``lane_gather``
-    launches) and each design alone, bitwise, by CUDA events and on the
-    device; ``torch.take`` as a yardstick. Returns the reports by size."""
+    bench's seeded inputs, bitwise; the kernel alone by CUDA events and on
+    the device, ``torch.take`` as a yardstick. Returns the reports by
+    size."""
     from syzygy_tpu_torch.kernels import gather
     from syzygy_tpu_torch.tools import gather_bench as bench
 
@@ -358,12 +359,9 @@ def phase_compare_gather(device):
         check(torch.equal(kern, plain), f"lane_gather differs from its plain version by {err} at S = {n}")
         idx64 = idx.long()
         report = {"name": "lane_gather", "samples": n, "max_abs_err": err}
-        # the kernel alone, inputs checked above: the default, then each design
-        designs = (("", gather.DESIGN_DEFAULT), ("l2_", gather.DESIGN_L2), ("split_", gather.DESIGN_SPLIT))
-        for prefix, design in designs:
-            check(torch.equal(gather._launch(flat, idx, design), plain), f"design {prefix[:-1]} differs at S = {n}")
-            report[prefix + "ms"] = time_ms(lambda: gather._launch(flat, idx, design))
-            report[prefix + "device_ms"] = device_ms(lambda: gather._launch(flat, idx, design))
+        # the kernel alone: its inputs were checked above
+        report["ms"] = time_ms(lambda: gather._launch(flat, idx))
+        report["device_ms"] = device_ms(lambda: gather._launch(flat, idx))
         report["plain_ms"] = time_ms(lambda: gather.lane_gather_plain(flat, idx))
         report["library_ms"] = time_ms(lambda: torch.take(flat, idx64))  # a yardstick; the port never calls it
         report["library_device_ms"] = device_ms(lambda: torch.take(flat, idx64))

@@ -9,115 +9,55 @@
 // Bound on the H100: bytes. 4 B of idx + 4 B of out per sample + the
 // table once: 4S + 4S + 262,144 B (16.26 MB at S = 1,999,872, 4.85 us at
 // 3.35 TB/s; 268.7 MB at S = 33,554,432, 80.2 us); no arithmetic to speak
-// of. Two designs, both persistent grids walking the sample stream:
+// of.
 //
-// DESIGN_L2: the table through the read-only path (__ldg). A block has at
-// most 227 KB of shared memory, so the 256 KB table cannot sit in one; its
-// lines stay in L1/L2 after the first touches, and each random 4-byte
-// lookup costs a 32-byte sector from L1 or L2, about one lookup per clock
-// per SM. Indices move in as int4 and samples out as float4 (evict-first,
-// so the table keeps the caches), four vectors (16 samples) per thread in
-// flight before the lookups.
-//
-// DESIGN_SPLIT: a cluster of 2 CTAs holds one half of the table each (128
-// KB of dynamic shared memory for the 256 KB LUT, staged once with 16-byte
-// loads), and each CTA serves only the lookups into its own half, from
-// its own shared memory: both CTAs read every index of the chunks the
-// pair walks (the second read hits L2, the pair runs side by side) and
-// each writes the samples of its half (coalesced 4-byte stores that L2
-// merges into whole sectors). No lookup leaves the SM. Serves tables of up
-// to 2 x 227 KB. (Reading the partner's half through distributed shared
-// memory instead measured slower than DESIGN_L2 at both sizes: PERF.md.)
-//
-// Which design a launch takes is the caller's. DESIGN_DEFAULT, the one
-// kernels/gather.py::lane_gather takes, is DESIGN_SPLIT wherever the table
-// fits, DESIGN_L2 elsewhere: on the H100 the split design took 0.72x the
-// L2 design's device time at 2.0 M samples and 0.77x at 33.6 M (chip_smoke,
-// torch.profiler); by CUDA events at 2.0 M both are bound by the host's
-// issue time per launch.
+// Design. A block has at most 227 KB of shared memory, so the 256 KB
+// table cannot sit in one. A cluster of 2 CTAs holds one half of it each
+// (128 KB of dynamic shared memory, staged once), and each CTA serves
+// only the lookups into its own half, from its own shared memory: both
+// CTAs read every index of the chunks the pair walks (the second read
+// hits L2, the pair runs side by side) and each writes the samples of its
+// half (coalesced 4-byte stores that L2 merges into whole sectors). No
+// lookup leaves the SM. The grid is persistent, one pair per two SMs.
+// Indices and samples move as scalars, so any view of int32 indices
+// serves. Tables of up to 2 x 227 KB; kernels/gather.py refuses larger
+// ones. Two other designs measured slower on the H100 and went (PERF.md):
+// the table read through L1/L2 with 16-byte index loads (1.39x this
+// design's device time at 2.0 M samples, 1.30x at 33.6 M), and the table
+// in distributed shared memory, half of the lookups crossing to the
+// partner SM (slower than the L1/L2 design at both sizes).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.h"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int DESIGN_DEFAULT = 0;
-constexpr int DESIGN_L2 = 1;
-constexpr int DESIGN_SPLIT = 2;
-
-constexpr int L2_THREADS = 256;
-constexpr int L2_UNROLL = 4;  // index vectors per thread in flight
-constexpr int L2_BLOCKS_PER_SM = 8;
-
-constexpr int SP_CLUSTER = 2;
-constexpr int SP_THREADS = 1024;
-constexpr int SP_UNROLL = 4;
+constexpr int CLUSTER = 2;
+constexpr int THREADS = 1024;
+constexpr int UNROLL = 4;         // index loads per thread in flight
 constexpr int MAX_SMEM = 232448;  // a block's shared memory on the H100 (227 KB)
-constexpr int MAX_DEVICES = 64;
 
-// VEC = 4: idx and out are 16-byte aligned and move as int4/float4;
-// VEC = 1: scalars (an index tensor that starts off a 16-byte boundary).
-template <int VEC> struct Vec;
-template <> struct Vec<4> {
-  using I = int4;
-  using F = float4;
-};
-template <> struct Vec<1> {
-  using I = int;
-  using F = float;
-};
-
-__device__ __forceinline__ float4 lookup(const float* __restrict__ table, const int4& i) {
-  return make_float4(__ldg(table + i.x), __ldg(table + i.y), __ldg(table + i.z), __ldg(table + i.w));
-}
-__device__ __forceinline__ float lookup(const float* __restrict__ table, int i) {
-  return __ldg(table + i);
-}
-
-// A persistent pass over the sample stream, L2_UNROLL vectors per thread
-// per step; the samples past the last whole vector go to block 0.
-template <int VEC>
-__global__ void __launch_bounds__(L2_THREADS)
-lane_gather_l2(const float* __restrict__ table, const int* __restrict__ idx,
-               float* __restrict__ out, int64_t n) {
-  using I = typename Vec<VEC>::I;
-  using F = typename Vec<VEC>::F;
-  const I* iv = reinterpret_cast<const I*>(idx);
-  F* ov = reinterpret_cast<F*>(out);
-  const int64_t n_vec = n / VEC;
-  const int64_t step = (int64_t)gridDim.x * L2_THREADS * L2_UNROLL;
-  for (int64_t v0 = (int64_t)blockIdx.x * L2_THREADS * L2_UNROLL + threadIdx.x; v0 < n_vec; v0 += step) {
-    I lane_idx[L2_UNROLL];
-#pragma unroll
-    for (int u = 0; u < L2_UNROLL; ++u) {  // every index load in flight first
-      const int64_t v = v0 + (int64_t)u * L2_THREADS;
-      if (v < n_vec) lane_idx[u] = __ldcs(iv + v);
-    }
-#pragma unroll
-    for (int u = 0; u < L2_UNROLL; ++u) {
-      const int64_t v = v0 + (int64_t)u * L2_THREADS;
-      if (v < n_vec) __stcs(ov + v, lookup(table, lane_idx[u]));
-    }
-  }
-  if (VEC > 1 && blockIdx.x == 0) {
-    for (int64_t i = n_vec * VEC + threadIdx.x; i < n; i += L2_THREADS) out[i] = __ldg(table + idx[i]);
-  }
-}
-
-// Copies table[first, first + count) into `part` (first % 4 == 0).
+// Copies table[first, first + count) into `part`, 16 bytes at a time
+// where the table is 16-byte aligned (`first` is a multiple of 4).
 __device__ __forceinline__ void stage_half(float* part, const float* __restrict__ table, int first,
                                            int count) {
-  const float4* src4 = reinterpret_cast<const float4*>(table + first);
-  for (int i = threadIdx.x; i < count / 4; i += blockDim.x) {
-    reinterpret_cast<float4*>(part)[i] = __ldg(src4 + i);
+  const float* src = table + first;
+  int done = 0;
+  if ((uintptr_t)src % 16 == 0) {
+    for (int i = threadIdx.x; i < count / 4; i += blockDim.x) {
+      reinterpret_cast<float4*>(part)[i] = __ldg(reinterpret_cast<const float4*>(src) + i);
+    }
+    done = count / 4 * 4;
   }
-  for (int i = count / 4 * 4 + threadIdx.x; i < count; i += blockDim.x) part[i] = __ldg(table + first + i);
+  for (int i = done + threadIdx.x; i < count; i += blockDim.x) part[i] = __ldg(src + i);
 }
 
-__global__ void __cluster_dims__(SP_CLUSTER, 1, 1) __launch_bounds__(SP_THREADS)
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
 lane_gather_split(const float* __restrict__ table, int half, int table_n,
                   const int* __restrict__ idx, float* __restrict__ out, int64_t n) {
   extern __shared__ __align__(16) float part[];  // table[first, first + count)
@@ -125,93 +65,53 @@ lane_gather_split(const float* __restrict__ table, int half, int table_n,
   const int count = min(half, table_n - first);
   stage_half(part, table, first, count);
   __syncthreads();
-  const int64_t pair = blockIdx.x / SP_CLUSTER, pairs = gridDim.x / SP_CLUSTER;
-  const int64_t step = pairs * SP_THREADS * SP_UNROLL;
-  for (int64_t i0 = pair * SP_THREADS * SP_UNROLL + threadIdx.x; i0 < n; i0 += step) {
-    int lane_idx[SP_UNROLL];
+  const int64_t pair = blockIdx.x / CLUSTER, pairs = gridDim.x / CLUSTER;
+  const int64_t step = pairs * THREADS * UNROLL;
+  for (int64_t i0 = pair * THREADS * UNROLL + threadIdx.x; i0 < n; i0 += step) {
+    int lane_idx[UNROLL];
 #pragma unroll
-    for (int u = 0; u < SP_UNROLL; ++u) {  // cached in L2 alone: the partner reads them too
-      const int64_t i = i0 + (int64_t)u * SP_THREADS;
+    for (int u = 0; u < UNROLL; ++u) {  // cached in L2 alone: the partner reads them too
+      const int64_t i = i0 + (int64_t)u * THREADS;
       lane_idx[u] = i < n ? __ldcg(idx + i) : first - 1;
     }
 #pragma unroll
-    for (int u = 0; u < SP_UNROLL; ++u) {
+    for (int u = 0; u < UNROLL; ++u) {
       const unsigned j = (unsigned)(lane_idx[u] - first);
-      if (j < (unsigned)count) __stcs(out + i0 + (int64_t)u * SP_THREADS, part[j]);
+      if (j < (unsigned)count) __stcs(out + i0 + (int64_t)u * THREADS, part[j]);
     }
   }
 }
 
-struct DeviceScope {  // makes `device` current for the launch, then restores
-  int previous = -1;
-  explicit DeviceScope(int device) {
-    int current = -1;
-    if (cudaGetDevice(&current) == cudaSuccess && current != device) {
-      cudaSetDevice(device);
-      previous = current;
-    }
-  }
-  ~DeviceScope() {
-    if (previous >= 0) cudaSetDevice(previous);
-  }
-};
-
 int sm_count(int device) {
-  static int cached[MAX_DEVICES] = {};
+  static int cached[szg::MAX_DEVICES] = {};
   if (!cached[device]) cudaDeviceGetAttribute(&cached[device], cudaDevAttrMultiProcessorCount, device);
   return cached[device];
 }
 
-int64_t blocks_for(int64_t n, int vec, int per_block, int64_t cap) {
-  const int64_t vectors = n / vec;
-  const int64_t need = (vectors + per_block - 1) / per_block;
-  return need < 1 ? 1 : (need < cap ? need : cap);
-}
-
-template <int VEC>
-int launch_l2(int device, cudaStream_t s, const float* table, const int* idx, float* out, int64_t n) {
-  const int64_t blocks = blocks_for(n, VEC, L2_THREADS * L2_UNROLL, (int64_t)sm_count(device) * L2_BLOCKS_PER_SM);
-  lane_gather_l2<VEC><<<(unsigned)blocks, L2_THREADS, 0, s>>>(table, idx, out, n);
-  return (int)cudaGetLastError();
-}
-
-int launch_split(int device, cudaStream_t s, const float* table, int table_n, const int* idx,
-                 float* out, int64_t n) {
-  static bool ready[MAX_DEVICES] = {};  // the shared-memory opt-in, once per device
-  const int half = ((table_n + 1) / 2 + 3) / 4 * 4;
-  if (!ready[device]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        lane_gather_split, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    ready[device] = true;
-  }
-  const int64_t pairs = blocks_for(n, 1, SP_THREADS * SP_UNROLL, sm_count(device) / SP_CLUSTER);
-  lane_gather_split<<<(unsigned)(pairs * SP_CLUSTER), SP_THREADS, half * (int)sizeof(float), s>>>(
-      table, half, table_n, idx, out, n);
-  return (int)cudaGetLastError();
-}
+// Elements of one CTA's half: half the table, rounded up to 16 bytes.
+long long half_of(long long table_n) { return ((table_n + 1) / 2 + 3) / 4 * 4; }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). The caller has checked that
-// every index lies in [0, table_n). `design` is DESIGN_DEFAULT, DESIGN_L2
-// or DESIGN_SPLIT; DESIGN_SPLIT refuses (cudaErrorInvalidValue) a table
-// that two CTAs cannot hold or that starts off a 16-byte boundary.
-// Launches on `stream` of `device`, allocates nothing, and returns the
-// launch's CUDA error (0 when it was accepted).
+// every index lies in [0, table_n). Refuses (cudaErrorInvalidValue) a
+// table whose halves do not fit two CTAs' shared memory. Launches on
+// `stream` of `device`, allocates nothing, and returns the launch's CUDA
+// error (0 when it was accepted).
 extern "C" int szg_lane_gather(const float* table, long long table_n, const int* idx, float* out,
-                               long long n, int design, int device, void* stream) {
+                               long long n, int device, void* stream) {
   if (n <= 0) return 0;
-  if (device < 0 || device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  DeviceScope scope(device);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool aligned = ((uintptr_t)idx % 16 == 0) && ((uintptr_t)out % 16 == 0);
-  const bool fits = table_n > 0 && ((table_n + 1) / 2 + 3) / 4 * 4 * (long long)sizeof(float) <= MAX_SMEM &&
-                    (uintptr_t)table % 16 == 0;
-  if (design == DESIGN_DEFAULT) design = fits ? DESIGN_SPLIT : DESIGN_L2;
-  if (design == DESIGN_SPLIT) {
-    return fits ? launch_split(device, s, table, (int)table_n, idx, out, n) : (int)cudaErrorInvalidValue;
-  }
-  if (design != DESIGN_L2) return (int)cudaErrorInvalidValue;
-  return aligned ? launch_l2<4>(device, s, table, idx, out, n) : launch_l2<1>(device, s, table, idx, out, n);
+  if (!szg::valid_device(device)) return (int)cudaErrorInvalidDevice;
+  const long long half = half_of(table_n);
+  if (table_n <= 0 || half * (long long)sizeof(float) > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  szg::DeviceScope scope(device);
+  static szg::SharedMemoryOptIn opt_in;
+  const cudaError_t err = opt_in.ensure(lane_gather_split, MAX_SMEM, device);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t pairs_needed = (n + THREADS * UNROLL - 1) / (THREADS * UNROLL);
+  const int64_t pairs_cap = sm_count(device) / CLUSTER;
+  const int64_t pairs = pairs_needed < pairs_cap ? pairs_needed : pairs_cap;
+  lane_gather_split<<<(unsigned)(pairs * CLUSTER), THREADS, (size_t)half * sizeof(float),
+                      static_cast<cudaStream_t>(stream)>>>(table, (int)half, (int)table_n, idx, out, n);
+  return (int)cudaGetLastError();
 }

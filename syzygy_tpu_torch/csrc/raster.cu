@@ -29,9 +29,12 @@
 // with the largest z, the larger slot among equal z. So a hit becomes the
 // 64-bit key (bits(z) << 32) | (slot + 1), with -0.0 made +0.0 so the bits
 // order like the values, and keys merge by atomicMax; key 0 is background.
-// Depth-only rasters merge the 32 bits of z alone. The epilogue decodes the
-// winning slot and recomputes its b0, b1 and z at the pixel with the same
-// expression, so depth, id and barycentrics are the serial loop's bits.
+// The epilogue decodes the winning slot and recomputes its b0, b1 and z at
+// the pixel with the same expression, so depth, id and barycentrics are
+// the serial loop's bits, -0.0 included. Depth-only rasters merge the 32
+// bits of z alone and write the merged bits: equal in value to the serial
+// loop's depth, but where it commits a hit at z = -0.0 they write +0.0
+// (the bits carry no slot to recompute z from).
 //
 // Work. A cluster of 8 CTAs serves one tile. A list of up to 256 pairs
 // (one batch) is split by rows: each CTA rasters the whole list over its
@@ -65,6 +68,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "launch.h"
 
 namespace cg = cooperative_groups;
 
@@ -378,7 +383,7 @@ raster_kernel(const float* __restrict__ coeffs,
     }
   }
   const int64_t at = (int64_t)(tile_y0 + lrow) * width + tile_x0 + lcol;
-  if constexpr (DEPTH_ONLY) {
+  if constexpr (DEPTH_ONLY) {  // the merged bits: -0.0 comes out as +0.0
     *reinterpret_cast<float4*>(depth_out + at) =
         make_float4(__uint_as_float((unsigned)k4[0]), __uint_as_float((unsigned)k4[1]),
                     __uint_as_float((unsigned)k4[2]), __uint_as_float((unsigned)k4[3]));
@@ -414,36 +419,14 @@ raster_kernel(const float* __restrict__ coeffs,
   if (!banded) cluster.sync();  // no CTA leaves while its keys or records may be read
 }
 
-// Makes `device` current for the launch when it is not, and restores it.
-struct DeviceScope {
-  int previous = -1;
-  explicit DeviceScope(int device) {
-    int current = -1;
-    if (cudaGetDevice(&current) == cudaSuccess && current != device) {
-      cudaSetDevice(device);
-      previous = current;
-    }
-  }
-  ~DeviceScope() {
-    if (previous >= 0) cudaSetDevice(previous);
-  }
-};
-
-constexpr int MAX_DEVICES = 64;
-
 template <bool DEPTH_ONLY>
 int launch(int device, dim3 grid, cudaStream_t stream, const float* coeffs, const int4* boxes,
            const int* slots, const int* offsets, int tiles_x, int width, int oy, int ox,
            float* depth, int* tri, float* b0, float* b1) {
-  static bool ready[MAX_DEVICES] = {};  // the shared-memory opt-in, once per device
+  static szg::SharedMemoryOptIn opt_in;
   const int bytes = (int)smem_bytes<DEPTH_ONLY>();
-  if (device < 0 || device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (!ready[device]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        raster_kernel<DEPTH_ONLY>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    ready[device] = true;
-  }
+  const cudaError_t err = opt_in.ensure(raster_kernel<DEPTH_ONLY>, bytes, device);
+  if (err != cudaSuccess) return (int)err;
   raster_kernel<DEPTH_ONLY><<<grid, THREADS, bytes, stream>>>(
       coeffs, boxes, slots, offsets, tiles_x, width, oy, ox, depth, tri, b0, b1);
   return (int)cudaGetLastError();
@@ -460,7 +443,8 @@ extern "C" int szg_raster(const float* coeffs, const int* boxes, const int* slot
                           int device, void* stream) {
   const int tiles = tiles_y * tiles_x;
   if (tiles <= 0) return 0;
-  DeviceScope scope(device);
+  if (!szg::valid_device(device)) return (int)cudaErrorInvalidDevice;
+  szg::DeviceScope scope(device);
   const dim3 grid(tiles * CLUSTER);
   const int width = tiles_x * TILE_W;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

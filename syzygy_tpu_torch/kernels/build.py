@@ -2,8 +2,8 @@
 
 Each source compiles with ``nvcc`` for sm_90a into a shared library with a
 plain C interface, ``_build/libsyzygy_<name>_<hash>.so``, keyed by a hash
-of the source and its flags, at first use (so a checkout builds what it
-runs, nothing else). ptxas's register/shared-memory report of each build
+of the source, the headers of ``csrc/`` and its flags, at first use (so a
+checkout builds what it runs, nothing else). ptxas's register/shared-memory report of each build
 is kept beside the library as ``.so.log``. :func:`build` starts one
 ``nvcc`` per missing source, all at once, and waits for them together.
 :func:`load` binds each entry point's ctypes signature once, when it
@@ -36,8 +36,8 @@ ENTRY_POINTS = {
     # coeffs, boxes, slots, offsets | tiles_y, tiles_x, oy, ox, depth_only |
     # depth, tri, b0, b1 | device, stream
     "raster": {"szg_raster": ([_P] * 4 + [_I] * 5 + [_P] * 4 + [_I, _P], _I)},
-    # table, table_n, idx, out, n, design, device, stream
-    "gather": {"szg_lane_gather": ([_P, _LL, _P, _P, _LL, _I, _I, _P], _I)},
+    # table, table_n, idx, out, n, device, stream
+    "gather": {"szg_lane_gather": ([_P, _LL, _P, _P, _LL, _I, _P], _I)},
 }
 _COMMON = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
@@ -60,8 +60,10 @@ def library_path(name: str) -> str:
     if name not in SOURCES:
         raise KeyError(f"no CUDA source named {name!r}")
     digest = hashlib.sha256()
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".h"))
+    for file in (f"{name}.cu", *headers):  # the source and every header it may include
+        with open(os.path.join(CSRC_DIR, file), "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(_COMMON + SOURCES[name]).encode())
     return os.path.join(BUILD_DIR, f"libsyzygy_{name}_{digest.hexdigest()[:16]}.so")
 

@@ -41,9 +41,17 @@ def lane_gather_plain(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return flat[idx.long()]
 
 
+# the largest table: csrc/gather.cu splits it between the two CTAs of a
+# cluster, each holding its half (rounded up to 16 bytes) in 227 KB of
+# shared memory
+MAX_TABLE = 2 * 232_448 // 4
+
+
 def _check(flat: torch.Tensor, idx: torch.Tensor) -> None:
     if flat.dtype != torch.float32 or flat.ndim != 1 or not flat.is_contiguous():
         raise ValueError("the table must be a contiguous 1-D float32 tensor")
+    if flat.numel() > MAX_TABLE:
+        raise ValueError(f"the table holds {flat.numel()} entries, the lane gather at most {MAX_TABLE}")
     if idx.dtype != torch.int32 or idx.ndim != 1 or not idx.is_contiguous():
         raise ValueError("the indices must be a contiguous 1-D int32 tensor")
     if flat.device != idx.device:
@@ -56,19 +64,13 @@ def _check(flat: torch.Tensor, idx: torch.Tensor) -> None:
             raise IndexError(f"indices span [{lo}, {hi}], the table holds {flat.numel()}")
 
 
-# csrc/gather.cu's designs: the table read through L1/L2, or split between
-# two CTAs that each serve their own half; DESIGN_DEFAULT takes the split
-# design (measured faster) wherever the table fits two CTAs' shared memory
-DESIGN_DEFAULT, DESIGN_L2, DESIGN_SPLIT = 0, 1, 2
-
-
-def _launch(flat: torch.Tensor, idx: torch.Tensor, design: int = DESIGN_DEFAULT) -> torch.Tensor:
+def _launch(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on checked inputs (see :func:`lane_gather`) on the
     current stream of the indices' device: no binding, no device guard."""
     dev = idx.device.index
     out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
     err = build.load("gather").szg_lane_gather(
-        flat.data_ptr(), flat.numel(), idx.data_ptr(), out.data_ptr(), idx.numel(), design, dev,
+        flat.data_ptr(), flat.numel(), idx.data_ptr(), out.data_ptr(), idx.numel(), dev,
         torch._C._cuda_getCurrentRawStream(dev),
     )
     if err != 0:
@@ -78,8 +80,9 @@ def _launch(flat: torch.Tensor, idx: torch.Tensor, design: int = DESIGN_DEFAULT)
 
 
 def lane_gather(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``flat[idx]`` for a contiguous 1-D f32 table and 1-D int32 indices
-    on one device, every index in range (checked: one host sync). CUDA
+    """``flat[idx]`` for a contiguous 1-D f32 table of at most
+    :data:`MAX_TABLE` entries and 1-D int32 indices on one device, every
+    index in range (checked: one host sync). CUDA
     tensors launch ``csrc/gather.cu``; CPU tensors run
     :func:`lane_gather_plain`."""
     _check(flat, idx)

@@ -32,8 +32,14 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """f32 fused multiply-add ``a * b + c`` with one rounding (the f32
     product is exact in float64, the float64 sum is rounded once more to
     f32; a sum that lands exactly on an f32 rounding tie can round twice,
-    rarer than 1 in 2^29)."""
-    return (a.double() * b.double() + c.double()).float()
+    rarer than 1 in 2^29). Only the operand of most dimensions is cast
+    first (under PyTorch's promotion a dimensioned f32 operand would win
+    over a 0-dim float64 one); ``addcmul`` casts the others as it reads
+    them, so this is three kernels on a GPU, not six."""
+    ops = [a, b, c]
+    wide = max(range(3), key=lambda i: ops[i].dim())
+    ops[wide] = ops[wide].double()
+    return torch.addcmul(ops[2], ops[0], ops[1]).float()
 
 
 def dot3_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -238,7 +238,10 @@ def test_bench_refuses_a_missing_card():
 
 @pytest.mark.parametrize(
     "case",
-    ["float64 table", "int64 indices", "2-D table", "strided indices", "index past the end", "negative index"],
+    [
+        "float64 table", "int64 indices", "2-D table", "strided indices", "index past the end", "negative index",
+        "table past two CTAs' shared memory",
+    ],
 )
 def test_lane_gather_refuses(case):
     """The wrapper raises on anything the kernel does not take."""
@@ -254,6 +257,10 @@ def test_lane_gather_refuses(case):
         idx = torch.arange(8, dtype=torch.int32)[::2]
     elif case == "index past the end":
         idx = torch.tensor([0, 16], dtype=torch.int32)
+    elif case == "table past two CTAs' shared memory":
+        from syzygy_tpu_torch.kernels.gather import MAX_TABLE
+
+        flat = torch.zeros(MAX_TABLE + 1, dtype=torch.float32)
     else:
         idx = torch.tensor([-1, 2], dtype=torch.int32)
     with pytest.raises((ValueError, IndexError)):
@@ -304,22 +311,22 @@ def test_kernel_matches_plain(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1_000_003, 2**24 + 3])
-@pytest.mark.parametrize("design", ["default", "l2", "split"])
-def test_kernel_matches_plain_sizes(cuda, n, design):
-    """Bitwise in each design of ``csrc/gather.cu``, at a sample count that
-    is not a multiple of the 4-sample vectors and at one whose indices and
-    outputs (2 x 67 MB) exceed the 50 MB L2; and on an index view that
-    starts off a 16-byte boundary (the scalar path). One counted launch
-    each."""
+def test_kernel_matches_plain_sizes(cuda, n):
+    """Bitwise at a sample count that is not a multiple of 4 and at one
+    whose indices and outputs (2 x 67 MB) exceed the 50 MB L2; on an index
+    view that starts off a 16-byte boundary, on a table view that does (its
+    halves are staged 4 bytes at a time), and on the largest table the
+    kernel takes. One counted launch each."""
     from syzygy_tpu_torch.kernels import gather
 
     rng = np.random.default_rng(3)
-    flat = torch.from_numpy(rng.random(H * W, dtype=np.float32)).to(cuda)
+    flat = torch.from_numpy(rng.random(gather.MAX_TABLE + 1, dtype=np.float32)).to(cuda)
     idx = torch.from_numpy(rng.integers(0, H * W, n + 1, dtype=np.int32)).to(cuda)
-    code = {"default": gather.DESIGN_DEFAULT, "l2": gather.DESIGN_L2, "split": gather.DESIGN_SPLIT}[design]
-    for view in (idx[:n], idx[1:]):
+    cases = [(flat[: H * W], idx[:n]), (flat[: H * W], idx[1:]), (flat[1 : H * W + 1], idx[:n])]
+    cases.append((flat[: gather.MAX_TABLE], (idx[:n].long() * gather.MAX_TABLE // (H * W)).to(torch.int32)))
+    for table, view in cases:
         before = LAUNCHES.lane_gather
-        out = gather._launch(flat, view, code)
+        out = gather._launch(table, view)
         assert LAUNCHES.lane_gather == before + 1
         torch.cuda.synchronize()
-        assert torch.equal(out, lane_gather_plain(flat, view))
+        assert torch.equal(out, lane_gather_plain(table, view))
