@@ -6,7 +6,9 @@ the reference app's default showcase view (eye (18, -16, -22) looking at
 (0, -6, 0)), ticks it (the sun advances unless the scene freezes it),
 renders each frame through :func:`renderer.frame.render_frame` on the
 device, quantizes to u8 there, and writes one PNG per frame. The device
-is the card unless ``--device cpu`` asks for the CPU.
+is the card unless ``--device cpu`` asks for the CPU. ``--no-atmosphere``,
+``--debug-lines``, ``--mipmaps``, ``--supersample`` and ``--oetf`` are the
+reference app's options of the same names.
 
 Usage:
     python -m syzygy_tpu_torch.app --scene flagship --frames 4 --out frames
@@ -38,6 +40,12 @@ def main(argv=None) -> None:
     parser.add_argument("--shadow-dim", type=int, default=1024)
     parser.add_argument("--skyview-scale", type=int, default=1, help="divide the 2048x1024 sky-view LUT")
     parser.add_argument("--dt", type=float, default=1.0 / 60.0, help="scene seconds per frame")
+    parser.add_argument("--no-atmosphere", action="store_true")
+    parser.add_argument("--debug-lines", action="store_true")
+    parser.add_argument("--mipmaps", action="store_true",
+                        help="trilinear mipmapped textures (beyond-parity; reference is single-mip)")
+    parser.add_argument("--supersample", type=int, default=1, help="SSAA factor (render at NxN subsamples)")
+    parser.add_argument("--oetf", type=str, default="srgb", choices=["srgb", "pure_gamma"])
     args = parser.parse_args(argv)
 
     import torch
@@ -66,6 +74,7 @@ def main(argv=None) -> None:
     scene.camera.position = EYE
     forward = torch.tensor(LOOK_AT, device="cpu") - torch.tensor(EYE, device="cpu")
     scene.camera.euler_angles = tuple(float(x) for x in eulers_from_forward(forward))
+    scene.render_atmosphere = not args.no_atmosphere  # the lighting pass then lights the sun too
     scene.tick(0.0)
     config = RenderConfig(
         width=args.width,
@@ -73,16 +82,22 @@ def main(argv=None) -> None:
         shadow_dim=args.shadow_dim,
         skyview_width=2048 // args.skyview_scale,
         skyview_height=1024 // args.skyview_scale,
+        render_atmosphere=not args.no_atmosphere,
+        debug_lines=args.debug_lines,
+        supersample=args.supersample,
+        oetf=args.oetf,
     )
     # the bounce multiplies to exactly zero without metallic materials
     config = dataclasses.replace(
         config, metallic_reflection=scene_uses_metallic(scene, library)
     )
-    geometry = pack_geometry(scene, library, device)
+    geometry = pack_geometry(scene, library, device, mipmaps=args.mipmaps)
     os.makedirs(args.out, exist_ok=True)
     for frame in range(args.frames):
         start = time.perf_counter()
-        params = upload_frame_params(pack_frame_params(scene, args.width / args.height), device)
+        params = upload_frame_params(
+            pack_frame_params(scene, args.width / args.height, debug_lines=args.debug_lines), device
+        )
         image = fetch_frame_u8(render_frame(geometry, params, config))
         elapsed = (time.perf_counter() - start) * 1000.0
         path = os.path.join(args.out, f"frame_{frame:04d}.png")

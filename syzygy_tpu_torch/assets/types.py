@@ -2,9 +2,10 @@
 
 Numpy port of ``syzygy_tpu/assets/types.py`` (``assets/assets.hpp:30-244``).
 Textures keep their native resolutions and are packed into ONE plain
-``(A_h, A_w, 4)`` atlas with a per-texture rect table; the TPU's quad and
-joint atlas packings (gather-count workarounds, bitwise-neutral) are not
-carried over.
+``(A_h, A_w, 4)`` atlas with a per-texture rect table (optionally with a
+mip pyramid per texture, :meth:`TextureLibrary.as_atlas_mips`); the TPU's
+quad and joint atlas packings (gather-count workarounds, bitwise-neutral)
+are not carried over.
 """
 
 from __future__ import annotations
@@ -156,6 +157,28 @@ class TextureLibrary:
             x0, y0, w, h = rects[i]
             atlas[y0 : y0 + h, x0 : x0 + w] = tex
         return atlas, rects.astype(np.int32)
+
+    def as_atlas_mips(self, levels: int = 6) -> tuple[np.ndarray, np.ndarray]:
+        """Pack a mip pyramid of every texture into one atlas (the
+        reference's beyond-parity option): (atlas (A_h, A_w, 4) f32, rects
+        (N, levels, 4) i32), ``rects[i, l]`` texture i's level-l placement.
+        Level l is the bilinear half-size reduction of level l-1, reduced
+        before packing so no level crosses a texture border; a texture
+        that bottoms out at 1x1 repeats its last level."""
+        pyramids: list[list[np.ndarray]] = []
+        for tex in self._textures or [np.zeros((1, 1, 4), np.float32)]:
+            chain = [tex]
+            for _ in range(levels - 1):
+                h, w = chain[-1].shape[:2]
+                if h == 1 and w == 1:
+                    chain.append(chain[-1])
+                else:
+                    chain.append(_resize_bilinear(chain[-1], max(h // 2, 1), max(w // 2, 1)))
+            pyramids.append(chain)
+        packer = TextureLibrary(max_size=self.max_size)
+        packer._textures = [img for chain in pyramids for img in chain]
+        atlas, flat_rects = packer.as_atlas()
+        return atlas, flat_rects.reshape(len(pyramids), levels, 4)
 
     def __len__(self) -> int:
         return len(self._textures)

@@ -7,17 +7,20 @@ to dicts of numpy arrays on its side (``np.asarray`` per leaf; nested
 
 from __future__ import annotations
 
+import numpy as np
+
 from syzygy_tpu_torch.device import to_tensor
 from syzygy_tpu_torch.scene.atmosphere import AtmosphereRaw
 from syzygy_tpu_torch.scene.lights import SpotRaw
-from syzygy_tpu_torch.scene.pack import FrameParams, geometry_to_device
+from syzygy_tpu_torch.scene.pack import FrameParams, FrameParamSpec, geometry_to_device
 
 
 def from_reference(geometry_np: dict, params_np: dict, device):
     """(GeometryStatic, FrameParams) tensors on ``device`` from the
-    reference's leaves. The geometry dict must hold the plain atlas
-    (``pack_geometry(quad_pack=False, joint_pack=False)``); fields the port
-    does not use (``debug_segments``, the mip/joint tables) are ignored."""
+    reference's leaves, ``tex_rects_mips`` and the debug segments
+    included. The geometry dict must hold the plain atlas
+    (``pack_geometry(quad_pack=False, joint_pack=False)``); the joint
+    tables, which the port does not have, are ignored."""
     if geometry_np["tex_atlas"].shape[-1] != 4:
         raise ValueError("pass the reference geometry packed with quad_pack=False")
     geometry = geometry_to_device(geometry_np, device)
@@ -36,3 +39,11 @@ def from_reference(geometry_np: dict, params_np: dict, device):
             fields[name] = up(value)
     return geometry, FrameParams(**fields)
 
+
+def packed_from_reference(buffer, spec):
+    """The reference's flattened ``(buffer, spec)`` pair
+    (``flatten_frame_params``/``frame_param_spec``) -> (numpy f32 buffer,
+    the port's :class:`FrameParamSpec`) for ``render_frame_packed``."""
+    return np.asarray(buffer, np.float32), FrameParamSpec(
+        tuple(tuple(s) for s in spec.shapes), tuple(spec.dtypes), tuple(spec.offsets), int(spec.total)
+    )

@@ -312,19 +312,25 @@ def step_radius_mu(start: RaymarchStep, step_distance) -> RaymarchStep:
     )
 
 
-def _march_setup(atmo, lut, origin, direction, sample_distance):
-    """Per-ray invariants of the 32-step integral: the origin step, the
-    step length, the hoisted origin-side transmittance samples."""
+def _ray_step_setup(atmo, origin, direction, sample_distance):
+    """The origin step, the scattering direction and the step length of a
+    32-step march."""
     scattering_dir = -direction / _norm(direction)
     radius = _norm(origin)[..., 0]
     mu = torch.sum(origin * direction, dim=-1) / (radius * _norm(direction)[..., 0])
     sun = atmo.incident_direction_sun
     mu_sun = torch.sum(origin * (-sun), dim=-1) / (radius * vec_norm(sun))
-    origin_step = RaymarchStep(radius, mu, mu_sun)
+    return scattering_dir, RaymarchStep(radius, mu, mu_sun), sample_distance / SKYVIEW_SAMPLES
+
+
+def _march_setup(atmo, lut, origin, direction, sample_distance):
+    """Per-ray invariants of the 32-step integral: the origin step, the
+    step length, the hoisted origin-side transmittance samples."""
+    scattering_dir, origin_step, d_sample = _ray_step_setup(atmo, origin, direction, sample_distance)
     up = (origin_step.mu > 0.0)[..., None]
     t_start_up = sample_transmittance_rmu(lut, atmo, origin_step.radius, origin_step.mu)
     t_start_dn = sample_transmittance_rmu(lut, atmo, origin_step.radius, -origin_step.mu)
-    return scattering_dir, origin_step, sample_distance / SKYVIEW_SAMPLES, up, t_start_up, t_start_dn
+    return scattering_dir, origin_step, d_sample, up, t_start_up, t_start_dn
 
 
 def _march_step(atmo, lut, origin, i, scattering_dir, origin_step, d_sample, up, t_start_up, t_start_dn):
@@ -372,6 +378,35 @@ def luminance_scattering_integral(atmo, lut, origin, direction, sample_distance)
     return luminance
 
 
+def luminance_scattering_integral_fast(atmo, lut, origin, direction, sample_distance):
+    """The exp-step integral (``atmosphere.py:495-570``): the same 32
+    sample points, phase and extinction as
+    :func:`luminance_scattering_integral`, with the path transmittance
+    carried as a running product of ``exp(-extinction * dt)`` and the
+    per-step ``(1 - T_step) / extinction`` from the same exponential; only
+    the sun transmittance still samples the LUT. Not parity-exact with the
+    LUT-ratio integral (``RenderConfig.fast_sky``, off by default)."""
+    scattering_dir, origin_step, d_sample = _ray_step_setup(atmo, origin, direction, sample_distance)
+    incident_cos = torch.sum(atmo.incident_direction_sun * scattering_dir, dim=-1)
+    phase_r = phase_rayleigh(incident_cos)[..., None]
+    phase_m = phase_mie(incident_cos, 0.8)[..., None]
+    luminance = torch.zeros((*sample_distance.shape, 3), dtype=F32, device=origin.device)
+    t_acc = torch.ones_like(luminance)
+    for i in range(SKYVIEW_SAMPLES):
+        t = float(i) * d_sample
+        begin = origin - t[..., None] * scattering_dir
+        sample_step = step_radius_mu(origin_step, t)
+        altitude = _norm(begin)[..., 0] - atmo.planet_radius_mm
+        t_sun = sample_transmittance_sun(lut, atmo, sample_step.radius, sample_step.mu_sun)
+        ext = sample_extinction(atmo, altitude)
+        t_step = torch.exp(-d_sample[..., None] * ext.extinction)
+        phase_scat = ext.scattering_rayleigh * phase_r + ext.scattering_mie * phase_m
+        integral = (1.0 - t_step) / torch.clamp(ext.extinction, min=1e-12)
+        luminance = luminance + phase_scat * t_sun * integral * t_acc
+        t_acc = t_acc * t_step
+    return luminance
+
+
 def _scattering_integral_components(atmo, lut, origin, direction, sample_distance):
     """The integral with the phase functions factored out
     (``atmosphere.py:615-683``): (A_rayleigh, A_mie)."""
@@ -413,11 +448,18 @@ def compute_transmittance_lut(atmo: AtmospherePacked, width: int, height: int):
     return torch.where(hit[..., None], transmittance, 1.0)
 
 
-def compute_skyview_lut(atmo: AtmospherePacked, origin_mm, transmittance_lut, width: int, height: int):
-    """``skyview_LUT.comp`` in the reference's row-wise form
-    (``atmosphere.py:686-781``): with the origin on the planet-center axis
-    every per-step term depends only on the LUT row (elevation), so the
-    build is ``height`` row integrals plus a per-texel phase combination."""
+def compute_skyview_lut(
+    atmo: AtmospherePacked, origin_mm, transmittance_lut, width: int, height: int,
+    fast: bool = False, rowwise: bool = True,
+):
+    """``skyview_LUT.comp`` (``atmosphere.py:686-790``): the lat-long
+    in-scattering map, (height, width, 3).
+
+    ``rowwise`` (default, without ``fast``): with the origin on the
+    planet-center axis every per-step term depends only on the LUT row
+    (elevation), so the build is ``height`` row integrals plus a per-texel
+    phase combination. Otherwise every texel integrates its own ray from
+    ``origin_mm``, with the exp-step integral when ``fast``."""
     dev = origin_mm.device
     u = (torch.arange(width, dtype=F32, device=dev) + 0.5) / width
     v = (torch.arange(height, dtype=F32, device=dev) + 0.5) / height
@@ -452,6 +494,11 @@ def compute_skyview_lut(atmo: AtmospherePacked, origin_mm, transmittance_lut, wi
         ],
         dim=-1,
     )
+    if not rowwise or fast:
+        origin = origin_mm.expand(direction.shape)
+        distance = raycast_atmosphere(atmo, origin, direction)
+        integral = luminance_scattering_integral_fast if fast else luminance_scattering_integral
+        return integral(atmo, transmittance_lut, origin, direction, distance)
     elev_row = elevation[:, :1]
     dir_row = torch.stack(
         [torch.zeros_like(elev_row), torch.sin(elev_row), torch.cos(elev_row)], dim=-1

@@ -9,7 +9,11 @@ reference's f16 segment tables are.
 
 Light loops run only over lights that can contribute. Which lights those
 are is decided on the host from one small device->host copy per frame
-(:func:`light_activity`), shared with the shadow pass.
+(:func:`light_activity`), shared with the shadow pass. The copy reads
+comparisons of the light parameters, never a value on the way to the
+image, so this one form is differentiable: autograd reaches the light
+colors and directions through the compacted loops (the reference needs its
+``unroll=True`` form for that).
 """
 
 from __future__ import annotations

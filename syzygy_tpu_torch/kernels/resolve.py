@@ -1,12 +1,15 @@
 """G-buffer resolve: visibility buffer -> shaded attribute planes.
 
-Port of ``syzygy_tpu/kernels/resolve.py`` (single-mip path): per-clipped-
-triangle attribute records are joined once per frame
+Port of ``syzygy_tpu/kernels/resolve.py``. Single-mip geometry: per-
+clipped-triangle attribute records are joined once per frame
 (:func:`build_resolve_records`), then each pixel gathers its record through
 the visibility buffer's slot id, interpolates perspective-correctly,
 samples the plain texture atlas (bilinear, REPEAT inside each texture's
 rect) and perturbs the normal with the analytic cotangent frame
-(``offscreen.frag:25-59``).
+(``offscreen.frag:25-59``). Mipmapped geometry
+(``GeometryStatic.tex_rects_mips``) takes the multi-gather form
+(:func:`_resolve_gbuffer_gathered`): the level of detail needs the
+screen-space UV footprint, differenced against the neighbouring pixels.
 """
 
 from __future__ import annotations
@@ -75,6 +78,44 @@ def sample_atlas_rect(r: torch.Tensor, atlas: torch.Tensor, uv: torch.Tensor) ->
     top = t00 * (1.0 - fracx) + t10 * fracx
     bot = t01 * (1.0 - fracx) + t11 * fracx
     return top * (1.0 - fracy) + bot * fracy
+
+
+def sample_bilinear_repeat(tex_ids, textures, uv):
+    """Bilinear + REPEAT sample from a texture array (N, S, S, 4)
+    (``resolve.py:66-89``)."""
+    size = textures.shape[1]
+    p = uv * size - 0.5
+    p0 = torch.floor(p)
+    frac = p - p0
+    i0 = torch.remainder(p0.to(torch.int64), size)
+    i1 = torch.remainder(i0 + 1, size)
+    x0, y0, x1, y1 = i0[..., 0], i0[..., 1], i1[..., 0], i1[..., 1]
+    fx, fy = frac[..., 0:1], frac[..., 1:2]
+    ids = tex_ids.long()
+    top = textures[ids, y0, x0] * (1.0 - fx) + textures[ids, y0, x1] * fx
+    bot = textures[ids, y1, x0] * (1.0 - fx) + textures[ids, y1, x1] * fx
+    return top * (1.0 - fy) + bot * fy
+
+
+def sample_atlas_repeat(tex_ids, atlas, rects, uv):
+    """Bilinear + REPEAT sample of texture ``tex_ids`` from the atlas
+    (``resolve.py:92-105``); REPEAT wraps inside the texture's own rect."""
+    return sample_atlas_rect(rects[tex_ids.long()].long(), atlas, uv)
+
+
+def sample_atlas_trilinear(tex_ids, atlas, rects_mips, uv, lod):
+    """Trilinear atlas sample (``resolve.py:108-125``): two bilinear taps at
+    the floor and ceil levels of ``lod`` (continuous, clamped to the
+    pyramid), mixed by its fraction."""
+    n_levels = rects_mips.shape[1]
+    lod = torch.clamp(lod, 0.0, n_levels - 1.0)
+    l0 = torch.floor(lod).to(torch.int64)
+    l1 = torch.clamp(l0 + 1, max=n_levels - 1)
+    fl = (lod - l0)[..., None]
+    ids = tex_ids.long()
+    a = sample_atlas_rect(rects_mips[ids, l0].long(), atlas, uv)
+    b = sample_atlas_rect(rects_mips[ids, l1].long(), atlas, uv)
+    return a * (1.0 - fl) + b * fl
 
 
 def _cotangent_frame_normal(n, dp1, dp2, duv1, duv2, normal_map):
@@ -182,15 +223,22 @@ def resolve_gbuffer_from_records(vis: VisibilityBuffer, records, geometry: Geome
     normal_tex = sample_atlas_rect(rects[..., 4:8], atlas, uv)
     orm_tex = sample_atlas_rect(rects[..., 8:12], atlas, uv)
 
-    # normal map decode (offscreen.frag:50-55): unsigned -> signed, green-up
-    nmap = normal_tex[..., :3] * (255.0 / 127.0) - (128.0 / 127.0)
-    nmap = nmap * torch.tensor([1.0, -1.0, 1.0], dtype=F32, device=nmap.device)
     normal = _cotangent_frame_normal(
-        normal_geo, rec[..., 27:30], rec[..., 30:33], rec[..., 33:35], rec[..., 35:37], nmap
+        normal_geo, rec[..., 27:30], rec[..., 30:33], rec[..., 33:35], rec[..., 35:37],
+        _decode_normal_map(normal_tex),
     )
+    return _planes(valid, color_tex, normal, position, orm_tex)
 
+
+def _decode_normal_map(normal_tex):
+    """``offscreen.frag:50-55``: unsigned -> signed, green-up."""
+    nmap = normal_tex[..., :3] * (255.0 / 127.0) - (128.0 / 127.0)
+    return nmap * torch.tensor([1.0, -1.0, 1.0], dtype=F32, device=nmap.device)
+
+
+def _planes(valid, color_tex, normal, position, orm_tex) -> GBuffer:
     valid_f = valid[..., None].to(F32)
-    ones = torch.ones((*hw, 1), dtype=F32, device=valid.device)
+    ones = torch.ones((*valid.shape, 1), dtype=F32, device=valid.device)
 
     def plane(rgb, alpha):
         return torch.cat([rgb, alpha], dim=-1) * valid_f
@@ -202,3 +250,82 @@ def resolve_gbuffer_from_records(vis: VisibilityBuffer, records, geometry: Geome
         world_position=plane(position, ones),
         orm=plane(orm_tex[..., :3], ones),
     )
+
+
+def resolve_gbuffer(vis: VisibilityBuffer, setup: TriSetup, geometry: GeometryStatic,
+                    world_positions, world_normals) -> GBuffer:
+    """Visibility buffer -> 5 G-buffer planes (``resolve.py:463-483``):
+    the record form for single-mip geometry, the multi-gather form when the
+    geometry carries a mip pyramid (level-dependent rect rows cannot be
+    joined per triangle)."""
+    if geometry.tex_rects_mips is not None:
+        return _resolve_gbuffer_gathered(vis, setup, geometry, world_positions, world_normals)
+    records = build_resolve_records(setup, geometry, world_positions, world_normals)
+    return resolve_gbuffer_from_records(vis, records, geometry)
+
+
+def _resolve_gbuffer_gathered(vis: VisibilityBuffer, setup: TriSetup, geometry: GeometryStatic,
+                              world_positions, world_normals) -> GBuffer:
+    """Multi-gather resolve (``resolve.py:571-682``): per pixel the
+    original triangle's vertex attributes, interpolated with the weights
+    mapped through the clip corners' barycentrics; with a mip pyramid the
+    level of detail of each map from the UV footprint against the pixel to
+    the left and above (0 at the frame's first row/column and where the
+    neighbour is background or another triangle: the sharp level, as GPU
+    quad derivatives choose at partial quads)."""
+    valid = vis.tri >= 0
+    tid = torch.clamp(vis.tri, min=0).long()
+    orig = setup.orig_tri[tid].long()
+    corner = setup.corner_bary[tid]  # (H, W, 3, 2)
+    corner_w = setup.corner_w[tid]
+
+    sb = torch.stack([vis.b0, vis.b1, 1.0 - vis.b0 - vis.b1], dim=-1)
+    pc = sb / torch.clamp(corner_w, min=1e-8)
+    pc = pc / torch.clamp(torch.sum(pc, dim=-1, keepdim=True), min=1e-20)
+    ob01 = matvec_fma(corner.transpose(-1, -2), pc)  # (H, W, 2)
+    pw = torch.cat([ob01, 1.0 - ob01[..., 0:1] - ob01[..., 1:2]], dim=-1)
+
+    idx = geometry.triangles.long()[orig]  # (H, W, 3)
+
+    def interp(attr):  # (V, C) -> (H, W, C)
+        return matvec_fma(attr[idx].transpose(-1, -2), pw)
+
+    position = interp(world_positions)
+    normal_geo = interp(world_normals)
+    normal_geo = normal_geo / _norm(normal_geo)
+    uv = interp(geometry.uvs)
+
+    mat = geometry.materials.long()[geometry.tri_material.long()[orig]]  # (H, W, 3)
+    atlas = geometry.tex_atlas
+    if geometry.tex_rects_mips is not None:
+        same_x = (torch.roll(orig, 1, dims=1) == orig) & valid & torch.roll(valid, 1, dims=1)
+        same_x[:, 0] = False  # the roll wraps: column 0 has no left neighbour
+        same_y = (torch.roll(orig, 1, dims=0) == orig) & valid & torch.roll(valid, 1, dims=0)
+        same_y[0, :] = False
+        dudx = torch.where(same_x[..., None], torch.abs(uv - torch.roll(uv, 1, dims=1)), 0.0)
+        dudy = torch.where(same_y[..., None], torch.abs(uv - torch.roll(uv, 1, dims=0)), 0.0)
+        rect0 = geometry.tex_rects_mips[:, 0]
+
+        def sample(ids):
+            dims = rect0[ids][..., 2:4].to(F32)
+            footprint = torch.maximum(
+                torch.amax(dudx * dims, dim=-1), torch.amax(dudy * dims, dim=-1)
+            )
+            lod = torch.log2(torch.clamp(footprint, min=1.0))
+            return sample_atlas_trilinear(ids, atlas, geometry.tex_rects_mips, uv, lod)
+    else:
+        def sample(ids):
+            return sample_atlas_repeat(ids, atlas, geometry.tex_rects, uv)
+
+    color_tex, normal_tex, orm_tex = sample(mat[..., 0]), sample(mat[..., 1]), sample(mat[..., 2])
+
+    v0, v1, v2 = idx[..., 0], idx[..., 1], idx[..., 2]
+    normal = _cotangent_frame_normal(
+        normal_geo,
+        world_positions[v1] - world_positions[v0],
+        world_positions[v2] - world_positions[v0],
+        geometry.uvs[v1] - geometry.uvs[v0],
+        geometry.uvs[v2] - geometry.uvs[v0],
+        _decode_normal_map(normal_tex),
+    )
+    return _planes(valid, color_tex, normal, position, orm_tex)

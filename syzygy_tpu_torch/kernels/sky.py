@@ -1,11 +1,19 @@
 """Sky/ground/aerial-perspective camera pass (port of ``camera.comp``).
 
-Port of ``syzygy_tpu/kernels/sky.py`` for the aerial-LUT formulation (the
-reference's default, ``RenderConfig.aerial_lut=True``): geometry pixels
-trilinearly sample a 32x32x16 froxel volume built with the exact
-in-scattering integral, environment pixels share one skyview and one
-transmittance sample across the ground/sky branches, and the ground
-branch's camera->surface transmittance comes from the per-row t_seg table.
+Port of ``syzygy_tpu/kernels/sky.py``, both formulations of
+:func:`sky_camera_pass`:
+
+* the aerial-LUT one (the reference's default,
+  ``RenderConfig.aerial_lut=True``): geometry pixels trilinearly sample a
+  32x32x16 froxel volume built with the exact in-scattering integral,
+  environment pixels share one skyview and one transmittance sample across
+  the ground/sky branches, and the ground branch's camera->surface
+  transmittance comes from the per-row t_seg table;
+* the quirk-exact one (``aerial=None``): one 32-step in-scattering
+  integral per pixel over ``where(is_env, planet distance, surface
+  distance)``, the unshared :func:`sample_environment` along the camera
+  ray and, with the metallic bounce, a second one from the surface along
+  the reflected ray.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from syzygy_tpu_torch.kernels.atmosphere import (
     METERS_PER_MM,
     PI,
     luminance_scattering_integral,
+    luminance_scattering_integral_fast,
     ray_sphere_intersect,
     ray_sphere_intersect_fma,
     safe_sqrt,
@@ -91,9 +100,114 @@ def _skyview_uv(atmo: AtmospherePacked, position, direction):
     return u, v
 
 
+def sample_skyview(atmo: AtmospherePacked, skyview_lut, position, direction):
+    """``sampleMap_Direction`` (``camera.comp:70-121``)."""
+    u, v = _skyview_uv(atmo, position, direction)
+    return sample_lut_bilinear(skyview_lut, u, v)
+
+
+def sample_skyview_ground(atmo: AtmospherePacked, skyview_lut, position, direction):
+    """Skyview sample for a planet-hitting ray (``sky.py:87-102``): v is
+    clamped so both bilinear rows lie in the below-horizon half."""
+    u, v = _skyview_uv(atmo, position, direction)
+    return sample_lut_bilinear(
+        skyview_lut, u, torch.clamp(v, min=0.5 + 0.5 / _lut_height(skyview_lut))
+    )
+
+
+def sample_sun_disk(atmo, transmittance_lut, position, direction):
+    """``sampleSunDisk`` (``camera.comp:123-140``)."""
+    transmittance = sample_transmittance_ray(transmittance_lut, atmo, position, direction)
+    return _sun_disk(atmo, direction, transmittance)
+
+
+def _sun_disk(atmo, direction, transmittance):
+    to_sun = -atmo.incident_direction_sun
+    cos_dir_sun = torch.sum(direction * to_sun, dim=-1) / (
+        _norm3(direction)[..., 0] * vec_norm(to_sun)
+    )
+    sin_sun_radius = atmo.sun_angular_radius
+    sin_dir_sun = safe_sqrt(1.0 - cos_dir_sun * cos_dir_sun)
+    edge0 = 0.2 * sin_sun_radius
+    t = torch.clamp((sin_dir_sun - edge0) / torch.clamp(sin_sun_radius - edge0, min=1e-12), 0.0, 1.0)
+    smooth = t * t * (3.0 - 2.0 * t)
+    disk = transmittance * (1.0 - smooth)[..., None]
+    return torch.where((cos_dir_sun < 0.0)[..., None], 0.0, disk)
+
+
+def fraction_of_sun_visible(atmo, radius):
+    """``computeFractionOfSunVisible`` (``camera.comp:142-147``): the
+    reference early-returns sinHorizonZenith; reproduced."""
+    return atmo.planet_radius_mm / radius
+
+
 def _hit_planet(atmo, origin, direction):
     hit, t0, _ = ray_sphere_intersect(origin, direction, atmo.planet_radius_mm)
     return hit & (t0 > 0.0), t0
+
+
+def _hit_planet_fma(atmo, origin, direction):
+    """:func:`_hit_planet` with the compiled sky pass's arithmetic
+    (:func:`ray_sphere_intersect_fma`)."""
+    hit, t0, _ = ray_sphere_intersect_fma(origin, direction, atmo.planet_radius_mm)
+    return hit & (t0 > 0.0), t0
+
+
+def _ground_albedo_nl(atmo, surface, direction):
+    """The ground's BRDF times n.l (``sampleGround``,
+    ``camera.comp:203-235``), with the reference's compiled dot products:
+    the glint's power of 160 amplifies each rounding of them."""
+    light_dir = -atmo.incident_direction_sun
+    surface_normal = surface / _norm3(surface)
+    halfway = light_dir + (-direction)
+    halfway = halfway / _norm3(halfway)
+    ld_b = light_dir.expand(halfway.shape)
+    spec_power = 160.0
+    microfacet = torch.pow(torch.clamp(dot3_fma(halfway, surface_normal)[..., None], 0.0, 1.0), spec_power)
+    specular = (spec_power + 2.0) / 8.0 * microfacet
+    diffuse = 0.4 / PI
+    fresnel = 0.04 + (1.0 - 0.04) * torch.pow(
+        1.0 - torch.clamp(dot3_fma(halfway, ld_b)[..., None], 0.0, 1.0), 5.0
+    )
+    albedo = diffuse * (1.0 - fresnel) + specular * fresnel
+    nl = torch.clamp(dot3_fma(surface_normal, ld_b)[..., None], 0.0, 1.0)
+    return albedo, nl
+
+
+def _integral(fast: bool):
+    return luminance_scattering_integral_fast if fast else luminance_scattering_integral
+
+
+def sample_ground(atmo, transmittance_lut, origin, direction, dist, aerial=None, fast: bool = False):
+    """``sampleGround`` (``camera.comp:203-235``, ``sky.py:139-178``).
+    ``aerial`` injects a precomputed in-scattering integral for the same
+    (origin, direction, dist)."""
+    surface = fma32(dist[..., None], direction, origin)
+    albedo, nl = _ground_albedo_nl(atmo, surface, direction)
+    light_dir = -atmo.incident_direction_sun
+    t_sun = sample_transmittance_ray(
+        transmittance_lut, atmo, surface, light_dir.expand(surface.shape)
+    )
+    surface_lum = t_sun * albedo * nl
+    t_surface = sample_transmittance_segment(transmittance_lut, atmo, origin, surface)
+    if aerial is None:
+        aerial = _integral(fast)(atmo, transmittance_lut, origin, direction, dist)
+    return surface_lum * t_surface + aerial
+
+
+def sample_environment(
+    atmo, transmittance_lut, skyview_lut, position, direction,
+    hit_dist=None, aerial=None, fast: bool = False,
+):
+    """``sampleEnvironmentLuminanceTransfer`` (``camera.comp:286-301``,
+    ``sky.py:181-199``) -> (luminance, sun disk); the sun's shadow factor
+    multiplies only the disk at the call sites."""
+    hit, dist = _hit_planet_fma(atmo, position, direction) if hit_dist is None else hit_dist
+    ground = sample_ground(atmo, transmittance_lut, position, direction, dist, aerial=aerial, fast=fast)
+    sky = sample_skyview(atmo, skyview_lut, position, direction)
+    disk = sample_sun_disk(atmo, transmittance_lut, position, direction)
+    hit3 = hit[..., None]
+    return torch.where(hit3, ground, sky), torch.where(hit3, 0.0, disk)
 
 
 def compute_skyview_tseg(atmo, transmittance_lut, position, height: int):
@@ -163,19 +277,7 @@ def sample_environment_shared(atmo, transmittance_lut, skyview_lut, position, di
     ))
 
     # ground shading (sampleGround, camera.comp:203-235)
-    surface_normal = surface / _norm3(surface)
-    halfway = light_dir + (-direction)
-    halfway = halfway / _norm3(halfway)
-    ld_b = light_dir.expand(halfway.shape)
-    spec_power = 160.0
-    microfacet = torch.pow(torch.clamp(dot3_fma(halfway, surface_normal)[..., None], 0.0, 1.0), spec_power)
-    specular = (spec_power + 2.0) / 8.0 * microfacet
-    diffuse = 0.4 / PI
-    fresnel = 0.04 + (1.0 - 0.04) * torch.pow(
-        1.0 - torch.clamp(dot3_fma(halfway, ld_b)[..., None], 0.0, 1.0), 5.0
-    )
-    albedo = diffuse * (1.0 - fresnel) + specular * fresnel
-    nl = torch.clamp(dot3_fma(surface_normal, ld_b)[..., None], 0.0, 1.0)
+    albedo, nl = _ground_albedo_nl(atmo, surface, direction)
     surface_lum = t_shared * albedo * nl
     if tseg_rows is not None:
         t_surface = _sample_tseg_rows(tseg_rows, v_sel)
@@ -184,35 +286,32 @@ def sample_environment_shared(atmo, transmittance_lut, skyview_lut, position, di
     ground = surface_lum * t_surface + sky
 
     # sun disk (sampleSunDisk, camera.comp:123-140)
-    to_sun = -atmo.incident_direction_sun
-    cos_dir_sun = torch.sum(direction * to_sun, dim=-1) / (
-        _norm3(direction)[..., 0] * vec_norm(to_sun)
-    )
-    sin_sun_radius = atmo.sun_angular_radius
-    sin_dir_sun = safe_sqrt(1.0 - cos_dir_sun * cos_dir_sun)
-    edge0 = 0.2 * sin_sun_radius
-    t = torch.clamp((sin_dir_sun - edge0) / torch.clamp(sin_sun_radius - edge0, min=1e-12), 0.0, 1.0)
-    smooth = t * t * (3.0 - 2.0 * t)
-    disk = t_shared * (1.0 - smooth)[..., None]
-    disk = torch.where((cos_dir_sun < 0.0)[..., None], 0.0, disk)
+    disk = _sun_disk(atmo, direction, t_shared)
     hit3 = hit[..., None]
     return torch.where(hit3, ground, sky), torch.where(hit3, 0.0, disk)
 
 
 def geometry_luminance_transfer(
     atmo, transmittance_lut, direction, material: PBRTexel, shadow_factor,
-    aerial, t_surface, t_sun,
+    aerial, t_surface=None, t_sun=None, origin=None,
 ):
-    """``computeGeometryLuminanceTransfer`` (``camera.comp:237-278``) with
-    the path/sun transmittances and in-scatter taken from the froxel
-    volume (``sky.py:365-409``)."""
+    """``computeGeometryLuminanceTransfer`` (``camera.comp:237-278``,
+    ``sky.py:365-409``). ``t_surface``/``t_sun`` inject the camera->surface
+    and surface->sun transmittances (the froxel volume stores both);
+    without them they are sampled per pixel, the first from ``origin``."""
     surface = material.position
     light_dir = _normalize(-atmo.incident_direction_sun)
+    if t_surface is None:
+        t_surface = sample_transmittance_segment(transmittance_lut, atmo, origin, surface)
+    if t_sun is None:
+        t_sun = sample_transmittance_ray(
+            transmittance_lut, atmo, surface, light_dir.expand(surface.shape)
+        )
     view_dir = -direction / _norm3(direction)
     shadowed_by_planet, _ = _hit_planet(atmo, surface, light_dir.expand(surface.shape))
     fresnel = compute_fresnel(material, light_dir, view_dir)
     # fractionOfSunVisible early-returns sinHorizonZenith (camera.comp:147)
-    frac_visible = atmo.planet_radius_mm / _norm3(surface)[..., 0]
+    frac_visible = fraction_of_sun_visible(atmo, _norm3(surface)[..., 0])
     nl = torch.clamp(_dot1(material.normal, light_dir), 0.0, 1.0)
     surface_transfer = (
         shadow_factor[..., None]
@@ -313,28 +412,13 @@ def sample_aerial_lut(aerial: AerialLUT, uv, dist_mm, t_max_mm: float):
     return out[..., 0:3], out[..., 3:6], out[..., 6:9]
 
 
-def sky_camera_pass(
-    scene_color,  # (H, W, 3) lit geometry
-    scene_depth,  # (H, W)
-    gbuffer: GBuffer,
-    camera: CameraPacked,
-    atmo: AtmospherePacked,
-    transmittance_lut,
-    skyview_lut,
-    sun_light: DirectionalLight,  # row 0 of the stacked lights
-    sun_shadow_map,  # (dim, dim)
-    draw_extent: tuple[int, int],  # (w, h) viewport for the rays
-    aerial: AerialLUT,
-    aerial_t_max: float,
-    tseg_rows=None,
-    metallic_reflection: bool = True,
-    pcf_f16: bool = False,
-    row_origin: int = 0,
-):
-    """``camera.comp`` main (``:303-395``) -> (H, W, 3) tonemapped color,
-    aerial-LUT formulation (``sky.py:598-822``)."""
-    h, w = scene_depth.shape
-    dev = scene_depth.device
+def camera_rays(camera: CameraPacked, atmo: AtmospherePacked, h: int, w: int,
+                draw_extent: tuple[int, int], row_origin: int = 0):
+    """The pass's per-pixel view rays in sky space (+y up, Mm) for rows
+    ``[row_origin, row_origin + h)`` (``camera.comp:318-328``) ->
+    (position (3,), direction (h, w, 3), xs (1, w), ys (h, 1)), xs/ys the
+    centred clip coordinates in [-1, 1)."""
+    dev = camera.position.device
     draw_w, draw_h = draw_extent
     flip = _flip(dev)
     up_r = torch.stack([torch.zeros_like(atmo.planet_radius_mm), atmo.planet_radius_mm,
@@ -359,22 +443,16 @@ def sky_camera_pass(
     view_h = matvec(camera.inverse_projection, torch.cat([clip_uv, ones, ones], dim=-1))
     direction = matvec(camera.rotation, view_h)[..., :3]
     direction = direction / _norm3(direction)
-    direction = direction * flip
+    return position, direction * flip, xs, ys
 
-    material = convert_pbr(gbuffer)
-    sky_material = material._replace(
-        normal=material.normal * flip,
-        position=material.position * flip / METERS_PER_MM + up_r,
-    )
-    pos_grid = position.expand(direction.shape)
-    is_env = (scene_depth == 0.0) | (material.position[..., 1] > 0.0)
-    dist_surface = vec_norm(sky_material.position - pos_grid)
 
-    coord, dx, dy = compute_shadow_frame(
-        matmul4(sun_light.projection, sun_light.view), material.position, material.normal
-    )
-    sun_shadow = sample_shadow_map(sun_shadow_map, coord, dx, dy, f16=pcf_f16)
-
+def _transfers_aerial(
+    atmo, transmittance_lut, skyview_lut, pos_grid, direction, sky_material, is_env,
+    dist_surface, sun_shadow, xs, ys, aerial, aerial_t_max, tseg_rows, metallic_reflection,
+):
+    """(environment, geometry) luminance transfers of the aerial-LUT
+    formulation (``sky.py:705-760``)."""
+    h, w = is_env.shape
     uv = torch.stack([(xs * 0.5 + 0.5).expand(h, w), (ys * 0.5 + 0.5).expand(h, w)], dim=-1)
     geom_aerial, geom_t_surface, geom_t_sun = sample_aerial_lut(aerial, uv, dist_surface, aerial_t_max)
     # branch-shared environment sampling: the camera ray for environment
@@ -398,6 +476,99 @@ def sky_camera_pass(
         geo_transfer = geo_transfer + (
             geom_t_surface * sky_material.metallic
             * compute_fresnel(sky_material, -direction, refl_dir) * refl
+        )
+
+    return env_transfer, geo_transfer
+
+
+def _transfers_exact(
+    atmo, transmittance_lut, skyview_lut, pos_grid, direction, sky_material, is_env,
+    dist_surface, sun_shadow, metallic_reflection, fast, fast_reflection,
+):
+    """(environment, geometry) luminance transfers of the quirk-exact
+    formulation (``sky.py:761-809``): the two branches are exclusive per
+    pixel, so one 32-step integral over the per-pixel distance serves
+    both."""
+    hit, dist_planet = _hit_planet_fma(atmo, pos_grid, direction)
+    shared_dist = torch.where(is_env, dist_planet, dist_surface)
+    shared_aerial = _integral(fast)(atmo, transmittance_lut, pos_grid, direction, shared_dist)
+    env, disk = sample_environment(
+        atmo, transmittance_lut, skyview_lut, pos_grid, direction,
+        hit_dist=(hit, dist_planet), aerial=shared_aerial,
+    )
+    env_transfer = env + disk  # shadowFactor = 1 on the environment branch
+    geo_transfer = geometry_luminance_transfer(
+        atmo, transmittance_lut, direction, sky_material, sun_shadow,
+        aerial=shared_aerial, origin=pos_grid,
+    )
+    if metallic_reflection:  # the ad-hoc single bounce (camera.comp:379-387)
+        t_surface = sample_transmittance_segment(
+            transmittance_lut, atmo, pos_grid, sky_material.position
+        )
+        refl_dir = reflect_direction(sky_material.normal, -direction)
+        refl_env, refl_disk = sample_environment(
+            atmo, transmittance_lut, skyview_lut, sky_material.position, refl_dir,
+            fast=fast or fast_reflection,
+        )
+        refl = refl_env + refl_disk * sun_shadow[..., None]
+        geo_transfer = geo_transfer + (
+            t_surface * sky_material.metallic
+            * compute_fresnel(sky_material, -direction, refl_dir) * refl
+        )
+    return env_transfer, geo_transfer
+
+
+def sky_camera_pass(
+    scene_color,  # (H, W, 3) lit geometry
+    scene_depth,  # (H, W)
+    gbuffer: GBuffer,
+    camera: CameraPacked,
+    atmo: AtmospherePacked,
+    transmittance_lut,
+    skyview_lut,
+    sun_light: DirectionalLight,  # row 0 of the stacked lights
+    sun_shadow_map,  # (dim, dim)
+    draw_extent: tuple[int, int],  # (w, h) viewport for the rays
+    aerial: AerialLUT | None = None,  # None: the quirk-exact per-pixel integrals
+    aerial_t_max: float = 0.0,
+    tseg_rows=None,
+    metallic_reflection: bool = True,
+    pcf_f16: bool = False,
+    row_origin: int = 0,  # global row of this block's first row
+    fast: bool = False,  # exp-step integrals (quirk-exact formulation only)
+    fast_reflection: bool = False,  # exp-step integral for the bounce's environment only
+):
+    """``camera.comp`` main (``:303-395``) -> (H, W, 3) tonemapped color
+    (``sky.py:598-822``)."""
+    h, w = scene_depth.shape
+    flip = _flip(scene_depth.device)
+    position, direction, xs, ys = camera_rays(camera, atmo, h, w, draw_extent, row_origin)
+    zero = torch.zeros_like(atmo.planet_radius_mm)
+    up_r = torch.stack([zero, atmo.planet_radius_mm, zero])
+
+    material = convert_pbr(gbuffer)
+    sky_material = material._replace(
+        normal=material.normal * flip,
+        position=material.position * flip / METERS_PER_MM + up_r,
+    )
+    pos_grid = position.expand(direction.shape)
+    is_env = (scene_depth == 0.0) | (material.position[..., 1] > 0.0)
+    dist_surface = vec_norm(sky_material.position - pos_grid)
+
+    coord, dx, dy = compute_shadow_frame(
+        matmul4(sun_light.projection, sun_light.view), material.position, material.normal
+    )
+    sun_shadow = sample_shadow_map(sun_shadow_map, coord, dx, dy, f16=pcf_f16)
+
+    if aerial is not None:
+        env_transfer, geo_transfer = _transfers_aerial(
+            atmo, transmittance_lut, skyview_lut, pos_grid, direction, sky_material, is_env,
+            dist_surface, sun_shadow, xs, ys, aerial, aerial_t_max, tseg_rows, metallic_reflection,
+        )
+    else:
+        env_transfer, geo_transfer = _transfers_exact(
+            atmo, transmittance_lut, skyview_lut, pos_grid, direction, sky_material, is_env,
+            dist_surface, sun_shadow, metallic_reflection, fast, fast_reflection,
         )
 
     env3 = is_env[..., None]

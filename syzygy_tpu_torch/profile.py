@@ -1,8 +1,10 @@
 """Where a frame's time goes, on one GPU.
 
-    python -m syzygy_tpu_torch.profile --scene default|dense|flagship
+    python -m syzygy_tpu_torch.profile --scene default|dense|flagship|flagship-exact
 
-Renders the scene at the default 1920x1080 RenderConfig on ``cuda:0``:
+Renders the scene at the default 1920x1080 RenderConfig on ``cuda:0``
+(``flagship-exact``: the chess flagship in the quirk-exact configuration,
+``n_shadow_maps=4, aerial_lut=False, fast_sky_reflection=False``):
 2 warm-up frames, then
 
 1. median ms/frame of 5 frames (CUDA events) and peak memory;
@@ -39,11 +41,13 @@ TIMED_FRAMES = 5
 # frame-graph steps, as render_frame_linear calls them
 STEPS = (
     "prepare_frame_state", "transform_positions", "transform_normals", "light_activity",
-    "_shadow_pass", "setup_triangles", "rasterize", "build_resolve_records",
-    "resolve_gbuffer_from_records", "deferred_lighting", "compute_transmittance_lut",
+    "_shadow_pass", "setup_triangles", "rasterize", "resolve_gbuffer",
+    "deferred_lighting", "compute_transmittance_lut",
     "compute_skyview_lut", "compute_skyview_tseg", "pack_lut_q8", "build_aerial_lut",
-    "sky_camera_pass", "oetf_srgb",
+    "sky_camera_pass", "draw_lines", "oetf_srgb",
 )
+# the quirk-exact configuration (tools/parity_1080p.py:51-57)
+EXACT = dict(n_shadow_maps=4, aerial_lut=False, fast_sky_reflection=False)
 
 
 def _scene(name: str, device):
@@ -73,7 +77,7 @@ def _scene(name: str, device):
         scene.tick(0.0)
         look([13.0, -8.0, -14.0], [0.0, -1.0, 0.0])
     config = dataclasses.replace(
-        RenderConfig(width=WIDTH, height=HEIGHT),
+        RenderConfig(width=WIDTH, height=HEIGHT, **(EXACT if name == "flagship-exact" else {})),
         metallic_reflection=scene_uses_metallic(scene, library),
     )
     return scene, pack_geometry(scene, library, device), config
@@ -81,7 +85,7 @@ def _scene(name: str, device):
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="per-layer frame profile")
-    parser.add_argument("--scene", choices=["default", "dense", "flagship"], default="default")
+    parser.add_argument("--scene", choices=["default", "dense", "flagship", "flagship-exact"], default="default")
     args = parser.parse_args(argv)
 
     from syzygy_tpu_torch.renderer import frame

@@ -1,15 +1,18 @@
 """The frame graph: scene state to final image.
 
 Port of ``syzygy_tpu/renderer/frame.py`` (``render_frame``,
-``frame.py:1155-1167``) on one device, eagerly:
+``render_frame_packed``, ``render_frame_rows``) on one device, eagerly:
 
 1. geometry: frame state, vertex transforms, one depth raster per shadow
    map that anything samples, the camera triangle setup + visibility
-   raster, and the per-triangle resolve records;
-2. shading: the transmittance, sky-view (q8), t_seg and aerial LUTs, then
-   per pixel the G-buffer resolve, deferred lighting (5x5 PCF on f16
-   maps), the sky camera pass and the OETF;
-3. supersample box filter and crop.
+   raster, and the G-buffer resolve (per-triangle records, or the
+   multi-gather form when the geometry has mips);
+2. shading: deferred lighting (5x5 PCF on f16 maps); with the atmosphere
+   the transmittance and sky-view LUTs and the sky camera pass, either
+   over the t_seg and aerial LUTs (``aerial_lut``, the default) or with
+   the quirk-exact per-pixel integrals;
+3. the debug line overlay, the supersample box filter, the OETF and the
+   crop.
 
 The TPU-only structure of the reference (three jitted programs, the
 68-row ``lax.map`` sky chunks that dodge a TPU compiler crash, quad/joint
@@ -24,17 +27,18 @@ import dataclasses
 
 import torch
 
+from syzygy_tpu_torch.device import to_tensor
 from syzygy_tpu_torch.kernels.atmosphere import (
     METERS_PER_MM,
     compute_skyview_lut,
     compute_transmittance_lut,
     pack_lut_q8,
 )
+from syzygy_tpu_torch.kernels.debuglines import draw_lines
 from syzygy_tpu_torch.kernels.lighting import deferred_lighting, light_activity
 from syzygy_tpu_torch.kernels.raster import TILE_H, TILE_W, rasterize, setup_triangles
 from syzygy_tpu_torch.kernels.resolve import (
-    build_resolve_records,
-    resolve_gbuffer_from_records,
+    resolve_gbuffer,
     transform_normals,
     transform_positions,
 )
@@ -47,7 +51,13 @@ from syzygy_tpu_torch.kernels.sky import (
 from syzygy_tpu_torch.kernels.transfer import oetf_pure_gamma, oetf_srgb
 from syzygy_tpu_torch.math.geometry import matmul4, matvec
 from syzygy_tpu_torch.scene.lights import MAX_SPOT_LIGHTS
-from syzygy_tpu_torch.scene.pack import FrameParams, GeometryStatic, prepare_frame_state
+from syzygy_tpu_torch.scene.pack import (
+    FrameParams,
+    FrameParamSpec,
+    GeometryStatic,
+    prepare_frame_state,
+    unflatten_frame_params,
+)
 
 N_DIRECTIONAL = 2  # sun + moon
 
@@ -65,13 +75,14 @@ class RenderConfig:
 
     Honoured: the dimensions, shadow-map count/bias, LUT dims,
     ``pcf_f16``, ``shadowless_strength_eps``, ``skyview_q8``/``skyview_f16``,
-    ``skyview_tseg``, ``render_atmosphere``, ``oetf``, ``supersample``,
-    ``metallic_reflection`` and ``aerial_lut_far_m``. Scheduling-only knobs
-    of the TPU build (program fusion, row chunks, tile-list capacity,
-    raster tile/chunk sizes, ``raster_vector``, setup sharding,
-    ``fast_sky_reflection`` which only the per-pixel-integral sky reads)
-    are accepted and ignored. TPU-only modes and features not ported yet
-    raise when set away from their defaults (:meth:`check`)."""
+    ``skyview_tseg``, ``render_atmosphere``, ``debug_lines``, ``oetf``,
+    ``supersample``, ``metallic_reflection``, ``aerial_lut`` and
+    ``aerial_lut_far_m``, ``fast_sky`` and ``fast_sky_reflection`` (read
+    by the per-pixel-integral sky only, as in the reference).
+    Scheduling-only knobs of the TPU build (program fusion, row chunks,
+    tile-list capacity, raster tile/chunk sizes, ``raster_vector``, setup
+    sharding) are accepted and ignored. TPU-only modes raise when set away
+    from their defaults (:meth:`check`)."""
 
     width: int = 1920
     height: int = 1080
@@ -119,11 +130,9 @@ class RenderConfig:
         "pcf_bitmask": False, "pcf_q8": False, "pcf_window2d": False,
         "lut_f16": False, "share_sun_pcf": False, "raster_unroll": True,
     }
-    # features off the ported slice
-    _NOT_PORTED = {"aerial_lut": True, "fast_sky": False, "debug_lines": False}
 
     def check(self) -> None:
-        for name, default in {**self._TPU_ONLY, **self._NOT_PORTED}.items():
+        for name, default in self._TPU_ONLY.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
                     f"RenderConfig.{name}={getattr(self, name)!r} is not supported "
@@ -179,15 +188,22 @@ def _shadow_pass(geometry: GeometryStatic, world_h, state, config: RenderConfig,
     return maps
 
 
-def render_frame_linear(geometry: GeometryStatic, params: FrameParams, config: RenderConfig):
-    """Geometry + shading up to the pre-OETF color of the padded render
-    target, (padded_height, padded_width, 3). ``params`` holds tensors on
-    the geometry's device (:func:`scene.pack.upload_frame_params`)."""
+def render_frame_linear(
+    geometry: GeometryStatic, params: FrameParams, config: RenderConfig,
+    row0: int = 0, local_rows: int | None = None,
+):
+    """Geometry + shading + debug lines: the pre-filter, pre-OETF color of
+    rows ``[row0, row0 + local_rows)`` of the padded render target (the
+    whole target by default), (rows, padded_width, 3). ``params`` holds
+    tensors on the geometry's device (:func:`scene.pack.upload_frame_params`
+    or :func:`scene.pack.unflatten_frame_params`)."""
     config.check()
+    local_rows = config.padded_height if local_rows is None else local_rows
     state = prepare_frame_state(params)
     cam = state.camera
+    proj_view = matmul4(cam.projection, cam.view)
     clip, world = transform_positions(
-        geometry.positions, geometry.vert_instance, state.models, matmul4(cam.projection, cam.view)
+        geometry.positions, geometry.vert_instance, state.models, proj_view
     )
     world_normals = transform_normals(
         geometry.normals, geometry.vert_instance, state.model_inv_transpose
@@ -204,13 +220,12 @@ def render_frame_linear(geometry: GeometryStatic, params: FrameParams, config: R
         clip, geometry.triangles, geometry.tri_valid,
         config.render_width, config.render_height,
         cull_keep_sign=+1,  # back-face cull, CW front (deferred.cpp:503-713)
-        grid_width=config.padded_width, grid_height=config.padded_height,
+        grid_width=config.padded_width, grid_height=local_rows, grid_origin=(row0, 0),
     )
-    vis = rasterize(setup, config.padded_width, config.padded_height)
-    records = build_resolve_records(setup, geometry, world, world_normals)
-    gbuffer = resolve_gbuffer_from_records(vis, records, geometry)
+    vis = rasterize(setup, config.padded_width, local_rows, origin=(row0, 0))
+    gbuffer = resolve_gbuffer(vis, setup, geometry, world, world_normals)
 
-    lit = torch.clamp(
+    color = torch.clamp(
         deferred_lighting(
             gbuffer, cam, state.directional_lights, state.spot_lights, shadow_maps,
             activity, pcf_f16=config.pcf_f16,
@@ -218,45 +233,93 @@ def render_frame_linear(geometry: GeometryStatic, params: FrameParams, config: R
         0.0,
         1.0,
     )
-    if not config.render_atmosphere:
-        return lit
+    if config.render_atmosphere:
+        color = _sky(state, color, vis.depth, gbuffer, shadow_maps, config, row0)
+    if config.debug_lines:
+        # the reference hands the overlay (width, height), not the render
+        # extent, also under supersample > 1 (frame.py:1068): reproduced
+        color = draw_lines(
+            color, vis.depth, state.debug_segments, state.debug_valid, proj_view,
+            (config.width, config.height),
+        )
+    return color
 
-    atmo = state.atmosphere
+
+def _sky(state, lit, depth, gbuffer, shadow_maps, config: RenderConfig, row0: int):
+    """The atmosphere LUTs and the sky camera pass over the lit color
+    (``_stage_sky``, ``frame.py:884-1055``) -> clamped (rows, W, 3)."""
+    atmo, cam = state.atmosphere, state.camera
     t_lut = compute_transmittance_lut(atmo, config.transmittance_width, config.transmittance_height)
     zero = torch.zeros_like(atmo.planet_radius_mm)
     origin_mm = cam.position[:3] / METERS_PER_MM * torch.tensor(
         [1.0, -1.0, 1.0], dtype=F32, device=zero.device
     ) + torch.stack([zero, atmo.planet_radius_mm, zero])
-    sky_arr = compute_skyview_lut(atmo, origin_mm, t_lut, config.skyview_width, config.skyview_height)
-    tseg = (
-        pack_tseg_rows(compute_skyview_tseg(atmo, t_lut, origin_mm, config.skyview_height))
-        if config.skyview_tseg
-        else None
+    sky_arr = compute_skyview_lut(
+        atmo, origin_mm, t_lut, config.skyview_width, config.skyview_height, fast=config.fast_sky
     )
     if config.skyview_q8:
         sky_lut = pack_lut_q8(sky_arr)
     else:
         sky_lut = sky_arr.to(torch.float16) if config.skyview_f16 else sky_arr
+    tseg = aerial = None
     t_max_mm = config.aerial_lut_far_m / METERS_PER_MM
-    aerial = build_aerial_lut(atmo, t_lut, cam, origin_mm, t_max_mm)
+    if config.aerial_lut:
+        if config.skyview_tseg:
+            tseg = pack_tseg_rows(compute_skyview_tseg(atmo, t_lut, origin_mm, config.skyview_height))
+        aerial = build_aerial_lut(atmo, t_lut, cam, origin_mm, t_max_mm)
     sun = type(state.directional_lights)(*[x[0] for x in state.directional_lights])
     color = sky_camera_pass(
-        lit, vis.depth, gbuffer, cam, atmo, t_lut, sky_lut, sun, shadow_maps[0],
+        lit, depth, gbuffer, cam, atmo, t_lut, sky_lut, sun, shadow_maps[0],
         draw_extent=(config.render_width, config.render_height),
         aerial=aerial, aerial_t_max=t_max_mm, tseg_rows=tseg,
         metallic_reflection=config.metallic_reflection, pcf_f16=config.pcf_f16,
+        row_origin=row0, fast=config.fast_sky, fast_reflection=config.fast_sky_reflection,
     )
     return torch.clamp(color, 0.0, 1.0)
 
 
-def render_frame(geometry: GeometryStatic, params: FrameParams, config: RenderConfig):
-    """Scene state -> (height, width, 3) nonlinear-encoded image in [0, 1],
-    on the geometry's device."""
-    color = render_frame_linear(geometry, params, config)
+def _encode(color, config: RenderConfig):
+    """Supersample box filter, then the OETF (``frame.py:1070-1079``)."""
     ss = config.supersample
     if ss > 1:
         h = (color.shape[0] // ss) * ss
         w = (config.render_width // ss) * ss
         color = color[:h, :w].reshape(h // ss, ss, w // ss, ss, 3).mean(dim=(1, 3))
-    encoded = oetf_srgb(color) if config.oetf == "srgb" else oetf_pure_gamma(color)
+    return oetf_srgb(color) if config.oetf == "srgb" else oetf_pure_gamma(color)
+
+
+def render_frame(geometry: GeometryStatic, params: FrameParams, config: RenderConfig):
+    """Scene state -> (height, width, 3) nonlinear-encoded image in [0, 1],
+    on the geometry's device."""
+    encoded = _encode(render_frame_linear(geometry, params, config), config)
     return encoded[: config.height, : config.width]
+
+
+def render_frame_packed(geometry: GeometryStatic, buffer, spec: FrameParamSpec, config: RenderConfig):
+    """:func:`render_frame` from a flattened FrameParams buffer
+    (:func:`scene.pack.flatten_frame_params`): one host-to-device copy per
+    frame, the leaves views of it on the geometry's device. ``buffer`` is
+    the host's f32 numpy array."""
+    buffer = to_tensor(buffer, geometry.positions.device)
+    return render_frame(geometry, unflatten_frame_params(spec, buffer), config)
+
+
+def render_frame_rows(
+    geometry: GeometryStatic, params: FrameParams, config: RenderConfig, row0: int, local_rows: int
+):
+    """Rows ``[row0, row0 + local_rows)`` of the padded frame, encoded,
+    (local_rows / supersample, padded_width / supersample, 3), not cropped
+    (``frame.py:1198-1234``): the same frame graph on a row block, so that
+    stacked blocks are bitwise the whole padded frame. ``local_rows`` must
+    be a multiple of the raster tile (and of ``supersample``). The shadow
+    maps and LUTs are computed again per block. With a mip pyramid the
+    first row of a block has no row above to difference against and takes
+    the sharp level; the debug overlay is drawn in the block's own
+    coordinates; both as in the reference.
+
+    The reference's ``shadow_shard_axis`` spreads the shadow rasters over a
+    device mesh. It has no meaning on one device and belongs to the port
+    of ``parallel/sharding.py``."""
+    if local_rows % TILE_H or row0 % TILE_H:
+        raise ValueError(f"row block [{row0}, {row0 + local_rows}) is not a multiple of {TILE_H} rows")
+    return _encode(render_frame_linear(geometry, params, config, row0, local_rows), config)

@@ -4,9 +4,12 @@ Port of ``syzygy_tpu/scene/pack.py`` with its own numpy host side:
 
 * :func:`pack_geometry` -> :class:`GeometryStatic`: one padded triangle soup
   (vertices replicated per instance, Morton-sorted triangles, plain f16
-  texture atlas), uploaded to ``device``. Rebuilt only on scene edits.
+  texture atlas, optionally with a mip pyramid), uploaded to ``device``.
+  Rebuilt only on scene edits.
 * :func:`pack_frame_params` -> :class:`FrameParams`: tiny numpy arrays for
-  one frame; :func:`upload_frame_params` moves them to a device.
+  one frame; :func:`upload_frame_params` moves them to a device, leaf by
+  leaf. :func:`flatten_frame_params` packs them into one f32 buffer (one
+  upload) and :func:`unflatten_frame_params` views it on the device.
 * :func:`prepare_frame_state` -> :class:`FrameState`: the per-frame
   matrices, camera, sun/moon and spot lights, computed on the device.
 """
@@ -57,6 +60,9 @@ class GeometryStatic(NamedTuple):
     materials: torch.Tensor  # (M, 3) i32 color/normal/orm texture ids
     tex_atlas: torch.Tensor  # (A_h, A_w, 4) f16 (or f32) linear light
     tex_rects: torch.Tensor  # (N, 4) i32 [x0, y0, w, h]
+    # mip pyramid (pack_geometry(mipmaps=True)): (N, L, 4) i32 per-level
+    # rects into the same atlas, or None for single-mip sampling
+    tex_rects_mips: torch.Tensor | None = None
 
 
 class FrameParams(NamedTuple):
@@ -77,6 +83,8 @@ class FrameParams(NamedTuple):
     spots: SpotRaw
     spot_count: np.ndarray  # i32
     directional_skip_count: np.ndarray  # i32 (1 when the sky pass lights the sun)
+    debug_segments: np.ndarray  # (S, 2, 3) world-space debug line endpoints
+    debug_valid: np.ndarray  # (S,) bool
 
 
 class FrameState(NamedTuple):
@@ -91,6 +99,8 @@ class FrameState(NamedTuple):
     directional_skip_count: torch.Tensor  # i32
     spot_lights: SpotLight  # stacked (MAX_SPOT_LIGHTS, ...)
     spot_count: torch.Tensor  # i32
+    debug_segments: torch.Tensor  # (S, 2, 3)
+    debug_valid: torch.Tensor  # (S,) bool
 
 
 def _pad_rows(arr: np.ndarray, total: int, fill=0) -> np.ndarray:
@@ -134,11 +144,12 @@ def _morton_order(centroids: np.ndarray) -> np.ndarray:
 
 
 def pack_geometry_host(
-    scene: Scene, texture_library, spatial_sort: bool = True, atlas_f16: bool = True
+    scene: Scene, texture_library, spatial_sort: bool = True, atlas_f16: bool = True,
+    mipmaps: bool = False,
 ) -> dict:
     """Numpy half of :func:`pack_geometry`: the GeometryStatic leaves as
     host arrays (the reference's ``pack_geometry(quad_pack=False,
-    joint_pack=False)`` arrays)."""
+    joint_pack=False)`` arrays; ``tex_rects_mips`` only with ``mipmaps``)."""
     positions, normals, uvs, colors, vert_instance = [], [], [], [], []
     triangles, tri_material, tri_shadow, tri_centroid = [], [], [], []
     materials: list[tuple[int, int, int]] = []
@@ -187,10 +198,15 @@ def pack_geometry_host(
     tri_valid = np.zeros(t_cap, bool)
     tri_valid[: triangles.shape[0]] = True
 
-    atlas, rects = texture_library.as_atlas()
+    if mipmaps:
+        atlas, rects_mips = texture_library.as_atlas_mips()
+        rects = rects_mips[:, 0]
+    else:
+        atlas, rects = texture_library.as_atlas()
+        rects_mips = None
     if atlas_f16:
         atlas = atlas.astype(np.float16)
-    return dict(
+    arrays = dict(
         positions=_pad_rows(positions, v_cap),
         normals=_pad_rows(np.concatenate(normals), v_cap),
         uvs=_pad_rows(np.concatenate(uvs), v_cap),
@@ -204,13 +220,16 @@ def pack_geometry_host(
         tex_atlas=atlas,
         tex_rects=rects,
     )
+    if rects_mips is not None:
+        arrays["tex_rects_mips"] = rects_mips
+    return arrays
 
 
 def geometry_to_device(arrays: dict, device) -> GeometryStatic:
     """Host arrays (by GeometryStatic field name) -> GeometryStatic on
-    ``device``."""
+    ``device``; without a ``tex_rects_mips`` entry the field stays None."""
     return GeometryStatic(
-        **{name: to_tensor(arrays[name], device) for name in GeometryStatic._fields}
+        **{name: to_tensor(arrays[name], device) for name in GeometryStatic._fields if name in arrays}
     )
 
 
@@ -224,12 +243,11 @@ def pack_geometry(
 ) -> GeometryStatic:
     """Flatten all renderable instances into one padded triangle soup on
     ``device``. ``atlas_f16`` (default, as the reference) stores the atlas
-    in float16; samples widen to f32 before filtering. Mipmaps are not
-    ported yet and raise."""
-    if mipmaps:
-        raise NotImplementedError("mipmapped atlases are not ported yet")
+    in float16; samples widen to f32 before filtering. ``mipmaps`` packs
+    a mip pyramid of every texture into the atlas and switches the resolve
+    to trilinear minification (the reference's beyond-parity option)."""
     return geometry_to_device(
-        pack_geometry_host(scene, texture_library, spatial_sort, atlas_f16), device
+        pack_geometry_host(scene, texture_library, spatial_sort, atlas_f16, mipmaps), device
     )
 
 
@@ -245,8 +263,10 @@ def scene_uses_metallic(scene: Scene, texture_library) -> bool:
     return any(float(texture_library.get(i)[..., 2].max()) > 0.0 for i in orm_ids)
 
 
-def pack_frame_params(scene: Scene, aspect_ratio: float) -> FrameParams:
-    """Numpy-only per-frame snapshot."""
+def pack_frame_params(scene: Scene, aspect_ratio: float, debug_lines: bool = False) -> FrameParams:
+    """Numpy-only per-frame snapshot. ``debug_lines`` packs the wireframe
+    boxes (it walks every instance transform, so only when the overlay is
+    on)."""
     renderable = _renderable(scene)
     if renderable:
         translations = np.concatenate([i.translations for i in renderable])
@@ -260,6 +280,11 @@ def pack_frame_params(scene: Scene, aspect_ratio: float) -> FrameParams:
     spots, spot_count = spot_raw(
         scene.spotlights if scene.spotlights_render else [], MAX_SPOT_LIGHTS
     )
+    if debug_lines:
+        debug_segments, debug_valid = _debug_boxes(scene, bounds_min, bounds_max)
+    else:
+        debug_segments = np.zeros((1, 2, 3), np.float32)
+        debug_valid = np.zeros(1, bool)
     f = np.float32
     return FrameParams(
         translations=np.asarray(translations, np.float32),
@@ -277,7 +302,94 @@ def pack_frame_params(scene: Scene, aspect_ratio: float) -> FrameParams:
         spots=spots,
         spot_count=np.int32(spot_count),
         directional_skip_count=np.int32(1 if scene.render_atmosphere else 0),
+        debug_segments=debug_segments,
+        debug_valid=debug_valid,
     )
+
+
+def _box_corners(lo, hi) -> np.ndarray:
+    return np.array(
+        [[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1]) for z in (lo[2], hi[2])],
+        np.float32,
+    )
+
+
+def _debug_boxes(scene: Scene, bounds_min, bounds_max):
+    """Wireframe boxes: every instance's oriented mesh bounds and the
+    scene's shadow bounds (``renderer.cpp:344-366, 417-427``) ->
+    ((S, 2, 3) segments, (S,) valid)."""
+    from syzygy_tpu_torch.kernels.debuglines import BOX_EDGES
+
+    segs = []
+    for instance in _renderable(scene):
+        corners = _box_corners(*instance.mesh.vertex_bounds)
+        corners_h = np.concatenate([corners, np.ones((8, 1), np.float32)], 1)
+        for t in instance.transforms:
+            segs.append((t.to_matrix() @ corners_h.T).T[:, :3][BOX_EDGES])
+    segs.append(
+        _box_corners(np.asarray(bounds_min, np.float32), np.asarray(bounds_max, np.float32))[BOX_EDGES]
+    )
+    segments = np.concatenate(segs, axis=0).astype(np.float32)
+    return segments, np.ones(segments.shape[0], bool)
+
+
+class FrameParamSpec(NamedTuple):
+    """Static description of a flattened FrameParams buffer (hashable)."""
+
+    shapes: tuple  # leaf shapes, in field order (nested tuples in place)
+    dtypes: tuple  # dtype names
+    offsets: tuple  # element offsets into the f32 buffer
+    total: int  # total f32 elements
+
+
+def _leaves(params: FrameParams) -> list:
+    out = []
+    for leaf in params:
+        out.extend(leaf if isinstance(leaf, tuple) else [leaf])
+    return out
+
+
+def frame_param_spec(params: FrameParams) -> FrameParamSpec:
+    shapes, dtypes, offsets = [], [], []
+    offset = 0
+    for leaf in _leaves(params):
+        arr = np.asarray(leaf)
+        shapes.append(tuple(arr.shape))
+        dtypes.append(arr.dtype.name)
+        offsets.append(offset)
+        offset += int(arr.size)
+    return FrameParamSpec(tuple(shapes), tuple(dtypes), tuple(offsets), offset)
+
+
+def flatten_frame_params(
+    params: FrameParams, spec: FrameParamSpec, out: np.ndarray | None = None
+) -> np.ndarray:
+    """Every leaf of host ``params`` in one f32 numpy buffer: one upload
+    per frame instead of one per leaf. Integer and bool leaves are stored
+    as f32 (small counts and flags, exact)."""
+    buf = out if out is not None else np.empty(spec.total, np.float32)
+    for leaf, off in zip(_leaves(params), spec.offsets):
+        arr = np.asarray(leaf)
+        buf[off : off + arr.size] = arr.astype(np.float32).reshape(-1)
+    return buf
+
+
+def unflatten_frame_params(spec: FrameParamSpec, buffer: torch.Tensor) -> FrameParams:
+    """Inverse of :func:`flatten_frame_params` on the buffer's device:
+    f32 leaves are views of ``buffer``, the others are cast back."""
+    leaves = []
+    for shape, dtype, off in zip(spec.shapes, spec.dtypes, spec.offsets):
+        size = int(np.prod(shape)) if shape else 1
+        leaf = buffer[off : off + size].reshape(shape)
+        if dtype != "float32":
+            leaf = leaf.to(getattr(torch, dtype))
+        leaves.append(leaf)
+    it = iter(leaves)
+    fields = {}
+    for name in FrameParams._fields:
+        nested = {"atmosphere": AtmosphereRaw, "spots": SpotRaw}.get(name)
+        fields[name] = nested(*[next(it) for _ in nested._fields]) if nested else next(it)
+    return FrameParams(**fields)
 
 
 def upload_frame_params(params: FrameParams, device) -> FrameParams:
@@ -323,4 +435,6 @@ def prepare_frame_state(params: FrameParams) -> FrameState:
         directional_skip_count=params.directional_skip_count.to(torch.int32),
         spot_lights=make_spot_batched(params.spots),
         spot_count=params.spot_count.to(torch.int32),
+        debug_segments=params.debug_segments.to(torch.float32),
+        debug_valid=params.debug_valid,
     )

@@ -210,29 +210,43 @@ def test_render_config_fields_match_reference():
     assert port == ref
 
 
-@pytest.mark.parametrize(
-    "field,value",
-    [
-        ("pcf_bitmask", True), ("pcf_q8", True), ("pcf_window2d", True),
-        ("lut_f16", True), ("share_sun_pcf", True), ("raster_unroll", False),
-        ("aerial_lut", False), ("fast_sky", True), ("debug_lines", True),
-    ],
-)
+TPU_ONLY_MODES = [
+    ("pcf_bitmask", True), ("pcf_q8", True), ("pcf_window2d", True),
+    ("lut_f16", True), ("share_sun_pcf", True), ("raster_unroll", False),
+]
+PORTED_MODES = [("aerial_lut", False), ("fast_sky", True), ("debug_lines", True)]
+
+
+@pytest.mark.parametrize("field,value", TPU_ONLY_MODES + PORTED_MODES)
 def test_render_config_rejects_unported_modes(field, value):
+    """The TPU's gather-layout modes raise; the quirk-exact sky, the fast
+    sky and the debug lines are ported and pass the check."""
     from syzygy_tpu_torch.renderer.frame import RenderConfig
 
-    with pytest.raises(NotImplementedError):
-        RenderConfig(**{field: value}).check()
+    config = RenderConfig(**{field: value})
+    if (field, value) in PORTED_MODES:
+        config.check()
+    else:
+        with pytest.raises(NotImplementedError):
+            config.check()
+    assert not hasattr(RenderConfig, "_NOT_PORTED")
     RenderConfig().check()  # the defaults are all supported
 
 
 def test_mipmaps_not_ported():
+    """What of the mip path is not ported is the TPU's quad packing of
+    the pyramid: ``pack_geometry(mipmaps=True)`` itself packs the plain
+    atlas with its (N, 6, 4) level rects and takes no ``quad_pack``."""
     from syzygy_tpu_torch.scene.pack import pack_geometry
     from syzygy_tpu_torch.scene.scene import default_scene
 
     scene, lib = default_scene()
-    with pytest.raises(NotImplementedError):
-        pack_geometry(scene, lib, "cpu", mipmaps=True)
+    geometry = pack_geometry(scene, lib, "cpu", mipmaps=True)
+    assert geometry.tex_atlas.shape[-1] == 4
+    assert tuple(geometry.tex_rects_mips.shape) == (len(lib), 6, 4)
+    assert torch.equal(geometry.tex_rects_mips[:, 0], geometry.tex_rects)
+    with pytest.raises(TypeError):
+        pack_geometry(scene, lib, "cpu", mipmaps=True, quad_pack=True)
 
 
 def test_reference_runs_on_cpu():
