@@ -42,7 +42,20 @@ no result line):
    (``flagship_512x288.npz``, visibility ``flagship_vis_512x288.npz``);
    at that size also the mip-mapped resolve, the debug lines (with and
    without the atmosphere, and under supersample 2) and the fast sky
-   (with and without the aerial LUT), card against the CPU port.
+   (with and without the aerial LUT), card against the CPU port;
+6. the app and the viewer, each a main path with the launch counters set
+   to 0 just before and read just after: ``python -m
+   syzygy_tpu_torch.app``'s ``main`` on the chess flagship at 1920x1080
+   (4 orbiting frames, an input script, ``--set`` of a scene property
+   and a config field, ``--save-scene``; ``--list-properties`` prints the
+   table), its last frame bitwise a direct ``render_frame_packed`` of the
+   saved scene; and the interactive viewer (``app.serve.serve``) on the
+   flagship at the default 1920x1080 RenderConfig, driven over
+   127.0.0.1 through a fixed script of fly input, preview and refined
+   frames, property edits (one refused with a 4xx), the texture
+   inspector and two scene loads, its final frame bitwise a direct
+   render of its state, every rendered request through the camera
+   raster; then what two frames in flight save per request.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -738,6 +751,316 @@ def phase_feature_frames(device):
     return results
 
 
+APP_INPUT_SCRIPT = [{"keys": "w"}, {"keys": "d"}, {"cursor": [12, -5]}]
+APP_FRAMES = 4
+VIEWER_FRAME_LIMIT = 40  # serve(frames=...): above the script's own /frame.png requests
+
+
+def _direct_frame(scene, library, config, device, geometry=None):
+    """``fetch_frame_u8(render_frame_packed(...))`` of a scene's current
+    state, as the app and the viewer render it."""
+    import numpy as np
+
+    from syzygy_tpu_torch.renderer.frame import render_frame_packed
+    from syzygy_tpu_torch.runtime import fetch_frame_u8
+    from syzygy_tpu_torch.scene.pack import flatten_frame_params, frame_param_spec, pack_frame_params, pack_geometry
+
+    geometry = pack_geometry(scene, library, device) if geometry is None else geometry
+    params = pack_frame_params(scene, config.width / config.height)
+    spec = frame_param_spec(params)
+    return fetch_frame_u8(render_frame_packed(geometry, flatten_frame_params(params, spec), spec, config))
+
+
+def phase_app(device, width=1920, height=1080):
+    """A main path: ``python -m syzygy_tpu_torch.app`` (its ``main``) on the
+    card, the chess flagship at 1920x1080, orbiting for 4 frames with a
+    3-entry input script, a scene and a config ``--set``, the scene saved
+    at the end; the launch counts set to 0 just before and read just
+    after. Its ``--list-properties`` run prints the table. The last PNG
+    must be bitwise a direct ``render_frame_packed`` of the saved scene
+    after ``load_scene`` (meshes from the flagship's own, instance by
+    instance) at the app's config."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from syzygy_tpu_torch.app.__main__ import main as app_main
+    from syzygy_tpu_torch.app.scenes import builtin_scene
+    from syzygy_tpu_torch.kernels.raster import LAUNCHES
+    from syzygy_tpu_torch.scene.serialize import load_scene, mesh_source_of
+    from syzygy_tpu_torch.utils.png import read_png
+
+    with tempfile.TemporaryDirectory() as tmp:
+        script = os.path.join(tmp, "input.json")
+        with open(script, "w") as f:
+            json.dump(APP_INPUT_SCRIPT, f)
+        saved = os.path.join(tmp, "scene.json")
+        args = [
+            "--scene", "flagship", "--device", str(device), "--width", str(width), "--height", str(height),
+            "--orbit", "--input-script", script, "--out", os.path.join(tmp, "frames"),
+            "--set", "camera.fov_degrees=60", "--set", "config.shadow_dim=2048",
+        ]
+        listing = io.StringIO()
+        with contextlib.redirect_stdout(listing):
+            app_main(args + ["--list-properties"])
+        table = listing.getvalue().splitlines()
+        check(table[0].split() == ["property", "value", "default"], f"--list-properties printed {table[:1]}")
+        fov = next((line for line in table if line.startswith("cameras[0].fov_degrees")), "")
+        check(fov.split()[1:3] == ["60", "70"], f"--list-properties fov row: {fov!r}")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        LAUNCHES.reset()
+        t0 = time.perf_counter()
+        result = app_main(args + ["--frames", str(APP_FRAMES), "--save-scene", saved])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"visibility": LAUNCHES.visibility, "depth": LAUNCHES.depth}
+        peak = int(torch.cuda.max_memory_allocated(device))
+
+        pngs = [read_png(p)[..., :3] for p in result["paths"]]
+        check(len(pngs) == APP_FRAMES, f"the app wrote {len(pngs)} frames")
+        check(all(p.shape == (height, width, 3) for p in pngs), f"app frame shapes {[p.shape for p in pngs]}")
+        check(launches["visibility"] == APP_FRAMES and launches["depth"] >= APP_FRAMES,
+              f"the app's {APP_FRAMES} frames launched {launches}")
+        check(result["config"].shadow_dim == 2048, "--set config.shadow_dim=2048 did not reach the config")
+        check(not np.array_equal(pngs[0], pngs[-1]), "the orbit did not move the camera")
+
+        flagship_scene, library = builtin_scene("flagship")
+        loaded = load_scene(saved, mesh_source_of(flagship_scene))
+        check(loaded.camera.fov_degrees == 60.0, f"saved fov {loaded.camera.fov_degrees}")
+        direct = _direct_frame(loaded, library, result["config"], device)
+        bitwise = bool(np.array_equal(direct, pngs[-1]))
+    report = {
+        "frames": APP_FRAMES,
+        "ms_per_frame_host": result["frame_ms"],
+        "fps_report": result["fps"],
+        "wall_s": wall,
+        "launches": launches,
+        "peak_mem_bytes": peak,
+        "last_frame_bitwise_saved_scene": bitwise,
+        "differing_bytes": int((direct != pngs[-1]).sum()),
+    }
+    print("app " + json.dumps(report), flush=True)
+    check(bitwise, f"the app's last frame differs from a direct render of its saved scene at {report['differing_bytes']} bytes")
+    return report
+
+
+class _Viewer:
+    """An HTTP client of the viewer on 127.0.0.1 that times each request
+    and reads the raster launches each one made."""
+
+    def __init__(self, port):
+        import urllib.request
+
+        self.base = f"http://127.0.0.1:{port}"
+        self.log = []
+        # no proxy from the environment: every request stays on this host
+        self.opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+    def request(self, method, path, body=None, label=None):
+        import urllib.error
+        import urllib.request
+
+        from syzygy_tpu_torch.kernels.raster import LAUNCHES
+
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(self.base + path, data=data, method=method)
+        before = (LAUNCHES.visibility, LAUNCHES.depth)
+        t0 = time.perf_counter()
+        try:
+            with self.opener.open(req, timeout=120) as r:
+                code, payload = r.status, r.read()
+        except urllib.error.HTTPError as e:
+            code, payload = e.code, e.read()
+        ms = (time.perf_counter() - t0) * 1e3
+        entry = {"request": label or f"{method} {path}", "code": code, "ms": ms,
+                 "visibility": LAUNCHES.visibility - before[0], "depth": LAUNCHES.depth - before[1]}
+        self.log.append(entry)
+        return code, payload, entry
+
+    def json(self, method, path, body=None, label=None):
+        code, payload, _ = self.request(method, path, body, label)
+        return code, json.loads(payload)
+
+    def frame(self, label):
+        """GET /frame.png -> (H, W, 3) u8; the entry notes whether the
+        request rendered (dispatched) a frame."""
+        from syzygy_tpu_torch.utils.png import decode_png
+
+        before = self.json("GET", "/api/stats")[1]["dispatched"]
+        code, payload, entry = self.request("GET", "/frame.png", label=label)
+        check(code == 200, f"{label}: /frame.png answered {code}: {payload[:200]!r}")
+        entry["rendered"] = self.json("GET", "/api/stats")[1]["dispatched"] - before
+        image = decode_png(payload)[..., :3]
+        entry["size"] = [image.shape[1], image.shape[0]]
+        return image
+
+    def drain(self, label, limit=8):
+        """/frame.png until the stats owe no frame; the last image."""
+        for i in range(limit):
+            image = self.frame(f"{label} {i}")
+            if not self.json("GET", "/api/stats")[1]["pending"]:
+                return image
+        raise SmokeFailure(f"{label}: still pending after {limit} requests")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _pipeline_saving(scene, library, config, device, rounds=3):
+    """What two frames in flight save per interactive request at full
+    resolution: host ms of render_png after an input, pipelined against
+    synchronous, in turns (off, on, on, off) on one card."""
+    from syzygy_tpu_torch.app.serve import _State
+
+    means = {False: [], True: []}
+    for pipeline in (False, True, True, False):
+        state = _State(scene, library, config, pipeline=pipeline, preview_scale=1, device=device)
+        state.render_png()
+        times = []
+        for _ in range(rounds):
+            state.handle_input("w", (0.0, 0.0), 0.05)
+            t0 = time.perf_counter()
+            state.render_png()
+            times.append((time.perf_counter() - t0) * 1e3)
+        means[pipeline].append(statistics.mean(times))
+    return {
+        "sync_ms_per_request": means[False],
+        "pipelined_ms_per_request": means[True],
+        "saved_ms_per_request": statistics.mean(means[False]) - statistics.mean(means[True]),
+    }
+
+
+def phase_viewer(device, width=1920, height=1080):
+    """A main path: the interactive viewer (``app.serve.serve``) on a
+    daemon thread, the chess flagship at the default 1920x1080
+    RenderConfig on the card with preview_scale 2, driven over HTTP on
+    127.0.0.1 by a fixed script (the launch counts set to 0 just before
+    and read just after): the page and a cold frame, three rounds of fly
+    input and frames (960x540 previews, pipelined), the drain to the
+    full-resolution refinement, property edits and a refused
+    ``config.raster_tile_h 0`` (4xx, config unchanged), the texture
+    inspector, two scene loads, and a final drained frame, which must be
+    bitwise a direct ``render_frame_packed`` of the viewer's scene and
+    config. Every request that rendered must have launched the camera
+    raster (once per frame it rendered) and a shadow raster."""
+    import threading
+
+    import numpy as np
+
+    from syzygy_tpu_torch.app.serve import serve
+    from syzygy_tpu_torch.kernels.raster import LAUNCHES
+
+    scene, library = flagship()
+    config = default_scene_config(scene, library, width=width, height=height)
+    port = _free_port()
+    out = {}
+    thread = threading.Thread(
+        target=lambda: out.update(state=serve(
+            scene, library, config, port=port, frames=VIEWER_FRAME_LIMIT, preview_scale=2, device=device
+        )),
+        daemon=True,
+    )
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    LAUNCHES.reset()
+    thread.start()
+    v = _Viewer(port)
+    for _ in range(600):  # the server is up once it answers the page
+        try:
+            code, page, _ = v.request("GET", "/", label="page")
+            break
+        except OSError:
+            time.sleep(0.05)
+    else:
+        raise SmokeFailure("the viewer did not come up")
+    check(code == 200 and b"drawSpark" in page, "GET / did not serve the viewer page")
+
+    sizes = {"cold": v.frame("cold frame").shape}
+    for i in range(3):
+        code, _ = v.json("POST", "/api/input", {"keys": "w", "dt": 0.12}, label=f"input {i}")
+        check(code == 200, f"/api/input answered {code}")
+        sizes[f"input {i}"] = v.frame(f"frame after input {i}").shape
+    sizes["refined"] = v.drain("refine").shape
+    full = (height, width, 3)
+    check(sizes["cold"] == full and sizes["refined"] == full, f"frame sizes {sizes}")
+    previews = sum(1 for e in v.log if e.get("size") == [width // 2, height // 2])
+    check(previews >= 2, f"only {previews} preview frames of {width // 2}x{height // 2}")
+
+    edits = {}
+    for path, value in (("camera.fov_degrees", "60"), ("config.n_shadow_maps", "4"), ("config.raster_tile_h", "0")):
+        edits[path] = v.json("POST", "/api/set", {"path": path, "value": value}, label=f"set {path}")
+    check(edits["camera.fov_degrees"] == (200, {"value": "60"}), f"fov edit: {edits['camera.fov_degrees']}")
+    check(edits["config.n_shadow_maps"] == (200, {"value": "4"}), f"n_shadow_maps edit: {edits['config.n_shadow_maps']}")
+    refused = edits["config.raster_tile_h"]
+    check(400 <= refused[0] < 500 and "error" in refused[1], f"config.raster_tile_h=0 answered {refused}")
+    rows = {p["path"]: p["value"] for p in v.json("GET", "/api/properties")[1]}
+    check(rows["config.raster_tile_h"] == "64" and rows["config.n_shadow_maps"] == "4",
+          f"the refused edit changed the config: raster_tile_h {rows['config.raster_tile_h']}")
+
+    code, textures = v.json("GET", "/api/textures")
+    check(code == 200 and textures, "no textures listed")
+    from urllib.parse import quote
+
+    from syzygy_tpu_torch.utils.png import decode_png
+
+    code, payload, _ = v.request("GET", "/texture.png?name=" + quote(textures[0]["name"]), label="texture")
+    tex = decode_png(payload)
+    check(code == 200 and tex.shape[:2] == (textures[0]["h"], textures[0]["w"]), f"texture.png: {code} {tex.shape}")
+
+    for name in ("chessboard", "flagship"):
+        code, loaded = v.json("POST", "/api/load", {"path": name, "merge": False}, label=f"load {name}")
+        check(code == 200 and loaded == {"scene": name}, f"/api/load {name}: {code} {loaded}")
+    final = v.drain("final")
+    code, stats = v.json("GET", "/api/stats")
+    check(final.shape == full, f"final frame {final.shape}")
+    launches = {"visibility": LAUNCHES.visibility, "depth": LAUNCHES.depth}
+    peak = int(torch.cuda.max_memory_allocated(device))
+
+    # stop the viewer: cached frames up to its frame limit
+    for _ in range(VIEWER_FRAME_LIMIT):
+        if not thread.is_alive():
+            break
+        try:
+            v.request("GET", "/frame.png", label="rest")
+        except OSError:
+            break
+        thread.join(timeout=0.05)
+    thread.join(timeout=30)
+    check(not thread.is_alive(), "the viewer did not stop")
+    state = out["state"]
+    direct = _direct_frame(state.scene, state.library, state.config, device, geometry=state.geometry)
+    bitwise = bool(np.array_equal(direct, final))
+
+    rendered = [e for e in v.log if e.get("rendered")]
+    for e in rendered:
+        check(e["visibility"] >= e["rendered"] and e["depth"] >= 1,
+              f"{e['request']} rendered {e['rendered']} frame(s) and launched {e['visibility']}/{e['depth']}")
+    saving = _pipeline_saving(*flagship(), config, device)
+    report = {
+        "requests": [e for e in v.log if e["request"] != "rest"],
+        "rendered_requests": len(rendered),
+        "launches": launches,
+        "peak_mem_bytes": peak,
+        "fps_report": stats["fps"],
+        "final_bitwise_direct": bitwise,
+        "differing_bytes": int((direct != final).sum()),
+        "two_frames_in_flight": saving,
+    }
+    print("viewer " + json.dumps(report), flush=True)
+    check(len(rendered) >= 6, f"only {len(rendered)} requests rendered a frame")
+    check(bitwise, f"the final viewer frame differs from a direct render at {report['differing_bytes']} bytes")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke test needs a GPU", file=sys.stderr)
@@ -777,6 +1100,8 @@ def main() -> int:
         phase_golden(device)
         phase_flagship_golden(device)
         phase_feature_frames(device)
+        app_report = phase_app(device)
+        viewer_report = phase_viewer(device)
     except (SmokeFailure, RuntimeError, ValueError, IndexError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
@@ -788,7 +1113,9 @@ def main() -> int:
         r = by_name[timed]
         return {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(f["launches"][kind] for f in (default_frames, flagship_frames, exact_frames)),
+            "launches": sum(
+                f["launches"][kind] for f in (default_frames, flagship_frames, exact_frames, app_report, viewer_report)
+            ),
             "max_abs_err": max(by_name[n]["max_abs_err"] for n in compared),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,

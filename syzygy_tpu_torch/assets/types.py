@@ -88,12 +88,15 @@ class TextureLibrary:
         self.max_size = max_size
         self._textures: list[np.ndarray] = []
         self._names: dict[str, int] = {}
+        self._srgb: list[bool] = []
 
-    def register(self, name: str, rgba: np.ndarray, srgb: bool = False) -> int:
+    def register(self, name: str, rgba: np.ndarray, srgb: bool = False, replace: bool = False) -> int:
         """Add a texture; uint8 input is normalized, sRGB-decoded if flagged
         (color maps are sRGB, normal/ORM maps linear UNORM). A registered
-        ``name`` returns its existing index."""
-        if name in self._names:
+        ``name`` returns its existing index untouched unless ``replace``,
+        which decodes the new texels and sRGB flag into the same index
+        (the reference's image dialog re-reads the file each time)."""
+        if name in self._names and not replace:
             return self._names[name]
         img = np.asarray(rgba)
         if img.dtype == np.uint8:
@@ -111,12 +114,33 @@ class TextureLibrary:
             img = _resize_bilinear(
                 img, max(int(round(h * s)), 1), max(int(round(w * s)), 1)
             )
-        idx = len(self._textures)
-        self._textures.append(np.ascontiguousarray(img, np.float32))
-        self._names[name] = idx
-        return idx
+        img = np.ascontiguousarray(img, np.float32)
+        if name in self._names:
+            idx = self._names[name]
+            self._textures[idx], self._srgb[idx] = img, srgb
+            return idx
+        self._textures.append(img)
+        self._srgb.append(srgb)
+        self._names[name] = len(self._textures) - 1
+        return self._names[name]
+
+    def lookup(self, name: str) -> Optional[int]:
+        return self._names.get(name)
+
+    def is_srgb(self, idx: int) -> bool:
+        """Whether the texture was sRGB-decoded when registered: display
+        paths encode such texels with the OETF again."""
+        return self._srgb[idx]
+
+    def names(self) -> list[str]:
+        """Registered names in index order (``ui/texturedisplay.cpp:21-80``)."""
+        ordered = [""] * len(self._textures)
+        for name, idx in self._names.items():
+            ordered[idx] = name
+        return ordered
 
     def get(self, idx: int) -> np.ndarray:
+        """The texture at native resolution, (H, W, 4) f32 linear light."""
         return self._textures[idx]
 
     def as_atlas(self) -> tuple[np.ndarray, np.ndarray]:

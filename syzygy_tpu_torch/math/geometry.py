@@ -12,8 +12,12 @@ function reads a global default device.
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 F32 = torch.float32
@@ -110,22 +114,31 @@ def _compose4(entries) -> torch.Tensor:
     return flat.reshape(*batch, 4, 4)
 
 
-def rotate_x(a: torch.Tensor) -> torch.Tensor:
-    c, s = torch.cos(a), torch.sin(a)
+def _rotate_x_cs(c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     o, z = torch.ones_like(c), torch.zeros_like(c)
     return _compose4([o, z, z, z, z, c, -s, z, z, s, c, z, z, z, z, o])
 
 
-def rotate_y(a: torch.Tensor) -> torch.Tensor:
-    c, s = torch.cos(a), torch.sin(a)
+def _rotate_y_cs(c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     o, z = torch.ones_like(c), torch.zeros_like(c)
     return _compose4([c, z, s, z, z, o, z, z, -s, z, c, z, z, z, z, o])
 
 
-def rotate_z(a: torch.Tensor) -> torch.Tensor:
-    c, s = torch.cos(a), torch.sin(a)
+def _rotate_z_cs(c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     o, z = torch.ones_like(c), torch.zeros_like(c)
     return _compose4([c, -s, z, z, s, c, z, z, z, z, o, z, z, z, z, o])
+
+
+def rotate_x(a: torch.Tensor) -> torch.Tensor:
+    return _rotate_x_cs(torch.cos(a), torch.sin(a))
+
+
+def rotate_y(a: torch.Tensor) -> torch.Tensor:
+    return _rotate_y_cs(torch.cos(a), torch.sin(a))
+
+
+def rotate_z(a: torch.Tensor) -> torch.Tensor:
+    return _rotate_z_cs(torch.cos(a), torch.sin(a))
 
 
 def orientate4(e: torch.Tensor) -> torch.Tensor:
@@ -222,6 +235,30 @@ def view_vk(position: torch.Tensor, euler_angles: torch.Tensor):
     """``viewVk`` = inverse(transformVk), computed as R^T @ T(-p)."""
     rot_t = orientate4(euler_angles).transpose(-1, -2)
     return matmul4(rot_t, translate(-position))
+
+
+@functools.cache
+def _libm():
+    lib = ctypes.CDLL(ctypes.util.find_library("m"))
+    for name in ("sinf", "cosf"):
+        getattr(lib, name).restype = ctypes.c_float
+        getattr(lib, name).argtypes = [ctypes.c_float]
+    return lib
+
+
+def orientate4_host(euler_angles) -> torch.Tensor:
+    """:func:`orientate4` of one host euler triple as the reference
+    computes it outside ``jit`` (``Camera.rotation``): its eager XLA CPU
+    ``sin``/``cos`` are glibc's ``sinf``/``cosf``, which torch's CPU
+    ``sin``/``cos`` differ from in the last bit on a few percent of
+    inputs. A CPU tensor."""
+    lib = _libm()
+    e = [float(x) for x in np.asarray(euler_angles, np.float32)]
+
+    def rot(fn, a):
+        return fn(torch.tensor(lib.cosf(a), dtype=F32), torch.tensor(lib.sinf(a), dtype=F32))
+
+    return matmul4(matmul4(rot(_rotate_y_cs, e[2]), rot(_rotate_x_cs, e[0])), rot(_rotate_z_cs, e[1]))
 
 
 def _normalize(v, eps=1e-20):

@@ -1,4 +1,11 @@
-"""Frame presentation: on-device u8 quantize, then one small D2H copy."""
+"""Frame presentation: on-device u8 quantize, then one small D2H copy.
+
+Port of ``syzygy_tpu/runtime.py``'s frame fetch. Its
+``place_on_accelerator``/``accelerator_device`` have no counterpart here:
+the port's constructors take their device explicitly, and
+``scene.pack.pack_geometry(..., device)`` (or ``geometry_to_device``)
+puts the packed scene where it renders.
+"""
 
 from __future__ import annotations
 

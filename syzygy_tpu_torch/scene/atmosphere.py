@@ -14,6 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from syzygy_tpu_torch.device import to_tensor
 from syzygy_tpu_torch.math.geometry import AABB, forward_from_eulers, vec_norm, world_up
 from syzygy_tpu_torch.scene.lights import DirectionalLight, make_directional
 
@@ -45,6 +46,29 @@ class Atmosphere:
     absorption_ozone_per_mm: tuple = (0.650, 1.881, 0.085)
     sun_intensity_spectrum: tuple = (1.0, 1.0, 1.0)
     sun_angular_radius: float = math.radians(32.0 / 60.0)
+
+    def _sun_eulers(self, device) -> torch.Tensor:
+        return torch.tensor(np.asarray(self.sun_euler_angles, np.float32), device=device)
+
+    def direction_to_sun(self, device) -> torch.Tensor:
+        """``Atmosphere::directionToSun`` (``scene.cpp:689-692``)."""
+        return -forward_from_eulers(self._sun_eulers(device))
+
+    def packed(self, device) -> "AtmospherePacked":
+        """``Atmosphere::toDeviceEquivalent`` (``scene.cpp:694-716``) on
+        ``device``: :func:`pack_atmosphere` of the raw snapshot."""
+        return pack_atmosphere(AtmosphereRaw(*[to_tensor(x, device) for x in atmosphere_raw(self)]))
+
+    def baked(self, scene_bounds: AABB) -> "AtmosphereBaked":
+        """``Atmosphere::baked`` (``scene.cpp:718-737``) on the bounds'
+        device: packed + sun/moon lights."""
+        dev = scene_bounds.center.device
+        eulers = self._sun_eulers(dev)
+        return AtmosphereBaked(
+            atmosphere=self.packed(dev),
+            sunlight=_create_sunlight(scene_bounds, eulers),
+            moonlight=_create_moonlight(scene_bounds, _sun_cosine(eulers), SUNSET_COSINE),
+        )
 
 
 class AtmosphereRaw(NamedTuple):
@@ -129,34 +153,53 @@ def pack_atmosphere(raw: AtmosphereRaw) -> AtmospherePacked:
     )
 
 
+class AtmosphereBaked(NamedTuple):
+    """``Atmosphere::baked`` (``scene.cpp:718-737``): the packed atmosphere
+    with its sun and moon lights."""
+
+    atmosphere: AtmospherePacked
+    sunlight: DirectionalLight
+    moonlight: DirectionalLight
+
+
+def _create_sunlight(scene_bounds: AABB, sun_euler_angles: torch.Tensor) -> DirectionalLight:
+    """``createSunlight`` (``scene.cpp:584-598``)."""
+    dev = sun_euler_angles.device
+    return make_directional(
+        color=torch.tensor([1.0, 1.0, 1.0, 1.0], dtype=F32, device=dev),
+        strength=torch.tensor(SUNLIGHT_STRENGTH, dtype=F32, device=dev),
+        euler_angles=sun_euler_angles,
+        captured_bounds=scene_bounds,
+    )
+
+
+def _create_moonlight(scene_bounds: AABB, sun_cosine: torch.Tensor, sunset_cosine: float) -> DirectionalLight:
+    """``createMoonlight`` (``scene.cpp:599-623``), keeping the reference's
+    quirk: ``glm::clamp(0, 1, x)`` with its arguments transposed evaluates
+    to ``min(1, x)``."""
+    dev = sun_cosine.device
+    return make_directional(
+        color=torch.tensor(MOONLIGHT_COLOR_RGBA, dtype=F32, device=dev),
+        strength=0.02 * torch.clamp(torch.abs(sun_cosine - sunset_cosine) / MOONRISE_LENGTH, max=1.0),
+        euler_angles=torch.tensor([-math.pi / 2.0, 0.0, 0.0], dtype=F32, device=dev),
+        captured_bounds=scene_bounds,
+    )
+
+
+def _sun_cosine(sun_euler_angles: torch.Tensor) -> torch.Tensor:
+    """The sun's height: world up against the direction to the sun."""
+    return torch.sum(world_up(sun_euler_angles.device) * -forward_from_eulers(sun_euler_angles))
+
+
 def bake_directional(raw: AtmosphereRaw, bounds_min, bounds_max) -> DirectionalLight:
     """Sun + moon baking (``scene.cpp:584-623,718-737``): a stacked (2, ...)
-    DirectionalLight, row 0 = sun, row 1 = moon.
-
-    Keeps the reference's moon quirk: ``glm::clamp(0, 1, x)`` with its
-    arguments transposed evaluates to ``min(1, x)``."""
-    dev = bounds_min.device
+    DirectionalLight, row 0 = sun, row 1 = moon."""
     bounds = AABB(
         center=(bounds_min + bounds_max) * 0.5,
         half_extent=(bounds_max - bounds_min) * 0.5,
     )
-    direction_to_sun = -forward_from_eulers(raw.sun_euler_angles)
-    sun_cosine = torch.sum(world_up(dev) * direction_to_sun)
-    sunlight = make_directional(
-        color=torch.tensor([1.0, 1.0, 1.0, 1.0], dtype=F32, device=dev),
-        strength=torch.tensor(SUNLIGHT_STRENGTH, dtype=F32, device=dev),
-        euler_angles=raw.sun_euler_angles,
-        captured_bounds=bounds,
-    )
-    moon_strength = 0.02 * torch.clamp(
-        torch.abs(sun_cosine - SUNSET_COSINE) / MOONRISE_LENGTH, max=1.0
-    )
-    moonlight = make_directional(
-        color=torch.tensor(MOONLIGHT_COLOR_RGBA, dtype=F32, device=dev),
-        strength=moon_strength,
-        euler_angles=torch.tensor([-math.pi / 2.0, 0.0, 0.0], dtype=F32, device=dev),
-        captured_bounds=bounds,
-    )
+    sunlight = _create_sunlight(bounds, raw.sun_euler_angles)
+    moonlight = _create_moonlight(bounds, _sun_cosine(raw.sun_euler_angles), SUNSET_COSINE)
     return DirectionalLight(
         *[torch.stack([a, b]) for a, b in zip(sunlight, moonlight)]
     )

@@ -13,6 +13,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from syzygy_tpu_torch.device import to_tensor
 from syzygy_tpu_torch.math.geometry import (
     AABB,
     forward_from_eulers,
@@ -151,6 +152,14 @@ def make_spot_batched(raw: SpotRaw) -> SpotLight:
         falloff_factor=raw.falloff_factor,
         falloff_distance=raw.falloff_distance,
     )
+
+
+def make_spot(params: SpotlightParams, device) -> SpotLight:
+    """``makeSpot`` (``lights.cpp:29-46``) of one spotlight on ``device``:
+    row 0 of :func:`make_spot_batched`."""
+    raw, _ = spot_raw([params], capacity=1)
+    batched = make_spot_batched(SpotRaw(*[to_tensor(x, device) for x in raw]))
+    return SpotLight(*[x[0] for x in batched])
 
 
 def _zero_directional(device) -> DirectionalLight:

@@ -118,6 +118,16 @@ def _renderable(scene: Scene):
     return [i for i in scene.geometry if i.mesh is not None and i.render]
 
 
+def _surface_materials(instance) -> list:
+    """Each surface's material, an instance's override in place of the
+    mesh's own where it has one (``MeshInstance.material_overrides``)."""
+    overrides = instance.material_overrides or [None] * len(instance.mesh.surfaces)
+    return [
+        override if override is not None else surface.material
+        for surface, override in zip(instance.mesh.surfaces, overrides)
+    ]
+
+
 def _morton3(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
     """Interleave three 10-bit integer grids into a 30-bit Morton code."""
 
@@ -166,8 +176,7 @@ def pack_geometry_host(
             colors.append(mesh.colors)
             vert_instance.append(np.full(mesh.positions.shape[0], instance_index, np.int32))
             mat4 = np.asarray(transform.to_matrix(), np.float32)
-            for surface in mesh.surfaces:
-                material = surface.material
+            for surface, material in zip(mesh.surfaces, _surface_materials(instance)):
                 key = (material.color, material.normal, material.orm)
                 if key not in material_ids:
                     material_ids[key] = len(materials)
@@ -252,13 +261,13 @@ def pack_geometry(
 
 
 def scene_uses_metallic(scene: Scene, texture_library) -> bool:
-    """Does any used material have nonzero metallic? When not, the metallic
-    reflection bounce multiplies to exactly zero and callers may switch it
-    off (``RenderConfig.metallic_reflection=False``)."""
+    """Does any used material (overrides included) have nonzero metallic?
+    When not, the metallic reflection bounce multiplies to exactly zero
+    and callers may switch it off (``RenderConfig.metallic_reflection=False``)."""
     orm_ids = {
-        surface.material.orm
+        material.orm
         for instance in _renderable(scene)
-        for surface in instance.mesh.surfaces
+        for material in _surface_materials(instance)
     }
     return any(float(texture_library.get(i)[..., 2].max()) > 0.0 for i in orm_ids)
 

@@ -24,9 +24,10 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", crc)
 
 
-def encode_png(image: np.ndarray) -> bytes:
+def encode_png(image: np.ndarray, compress_level: int = 6) -> bytes:
     """image: (H, W, 3|4) float in [0, 1] (rounded like the reference's
-    writer) or uint8 -> PNG bytes."""
+    writer) or uint8 -> PNG bytes, deflated at ``compress_level`` (1 is
+    the fastest, for frames that are viewed once)."""
     arr = np.asarray(image)
     if arr.dtype != np.uint8:
         arr = (np.clip(arr, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
@@ -38,7 +39,7 @@ def encode_png(image: np.ndarray) -> bytes:
     return b"".join([
         _SIGNATURE,
         _chunk(b"IHDR", header),
-        _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)),
+        _chunk(b"IDAT", zlib.compress(raw.tobytes(), compress_level)),
         _chunk(b"IEND", b""),
     ])
 

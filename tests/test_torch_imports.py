@@ -64,11 +64,17 @@ def test_no_forbidden_imports(path):
         "syzygy_tpu_torch.assets.chess",
         "syzygy_tpu_torch.assets.showcase",
         "syzygy_tpu_torch.app.scenes",
+        "syzygy_tpu_torch.app.serve",
+        "syzygy_tpu_torch.app.properties",
+        "syzygy_tpu_torch.scene.serialize",
+        "syzygy_tpu_torch.utils.metrics",
+        "syzygy_tpu_torch.utils.log",
     ],
 )
 def test_scans_cover_module(module):
     """The AST scan and the fresh-interpreter import reach every module,
-    the glTF path, the gather kernel and the tools included."""
+    the glTF path, the gather kernel, the tools, the viewer and its
+    property table, scene files and metrics included."""
     assert module in set(_modules())
     path = os.path.join(ROOT, *module.split(".")) + ".py"
     assert path in set(_port_files())
