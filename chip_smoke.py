@@ -11,7 +11,11 @@ no result line):
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``syzygy_tpu_torch/csrc/*.cu`` (the raster
    and the lane gather, one ``nvcc`` each, concurrently), with ptxas's
-   register report;
+   register report; then the C++ host core (``syzygy_tpu_torch/native.py``
+   builds ``csrc/szg_native.cpp`` with ``g++``), which must load, and
+   ``Scene.shadow_bounds`` through it on 40 seeded rotated-caster versions
+   each of the default scene and the flagship, held against the numpy
+   path at 1e-4;
 3. each kernel vs its plain torch version on the card, bitwise, timed by
    CUDA events and on the device (``torch.profiler``), beside its bound:
    the raster on the default scene's 1920x1088 camera and 1024^2 sun map,
@@ -55,7 +59,12 @@ no result line):
    frames, property edits (one refused with a 4xx), the texture
    inspector and two scene loads, its final frame bitwise a direct
    render of its state, every rendered request through the camera
-   raster; then what two frames in flight save per request.
+   raster; then what two frames in flight save per request;
+7. multi-device rendering (``parallel/sharding.py``), each case a main
+   path with rank 0's launch counts, each batch bitwise the direct
+   ``render_frame``: world size 1 in this process on the flagship at
+   1920x1080, then two spawned gloo ranks sharing the card at (dp=1,
+   sp=2) on the flagship and at (2, 1) on two default-scene frames.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -103,6 +112,9 @@ RASTER_OPS_PER_TEST = 16
 REPS = 20
 TRACE_ATTEMPTS = 3  # device_ms's traces before it gives up
 GATHER_SIZES = (1_999_872, 33_554_432)  # the bench's default S; 2^25 (268 MB of idx + out)
+NATIVE_SEEDS = 40  # rotated-caster scenes per scene in phase_native
+SHARDED_TIMEOUT = 300.0  # s: the world-size-1 group, and the spawned ranks of both gloo cases
+SHARDED_DEFAULT_DT = 20.0  # s between the (2, 1) case's two default-scene frames
 
 # the visibility class of the golden comparison (tests/test_raster.py rules)
 EDGE_TOL = 1e-4  # an id may differ only this close (barycentric) to an edge
@@ -1061,6 +1073,143 @@ def phase_viewer(device, width=1920, height=1080):
     return report
 
 
+def phase_native():
+    """The port's C++ host core (``syzygy_tpu_torch/native.py``), built
+    with ``g++`` from ``csrc/szg_native.cpp`` on this host, then
+    ``Scene.shadow_bounds`` on ``NATIVE_SEEDS`` seeded rotated-caster
+    versions of the default scene and of the chess flagship: through the
+    C++ path (counted by the library's call counter) and through the numpy
+    path, held together at the reference's 1e-4
+    (``tests/test_fallbacks.py:15-21``), relative where a bound exceeds 1
+    (the default floor reaches 2,000 m, where one f32 step is 2.4e-4); it
+    counts the bitwise vectors."""
+    import numpy as np
+
+    from syzygy_tpu_torch import native
+    from syzygy_tpu_torch.assets.chess import flagship_scene
+    from syzygy_tpu_torch.scene.scene import default_scene
+
+    t0 = time.perf_counter()
+    path = native.build()
+    build_s = time.perf_counter() - t0
+    check(native.available(), "the port's C++ host core did not build or load")
+    report = {"build_s": build_s, "library": os.path.relpath(path, ROOT), "scenes": {}}
+    available = native.available
+    for name, make in (("default", default_scene), ("flagship", flagship_scene)):
+        scene, _ = make()
+        native.CALLS.reset()
+        vectors = bitwise = 0
+        worst = worst_rel = 0.0
+        for seed in range(NATIVE_SEEDS):
+            rng = np.random.default_rng(seed)
+            for instance in scene.geometry:
+                for transform in instance.transforms:
+                    transform.euler_angles[:] = rng.uniform(-np.pi, np.pi, 3).astype(np.float32)
+            compiled = scene.shadow_bounds()
+            native.available = lambda: False
+            try:
+                plain = scene.shadow_bounds()
+            finally:
+                native.available = available
+            for a, b in zip(compiled, plain):
+                vectors += 1
+                bitwise += bool(np.array_equal(a, b))
+                worst = max(worst, float(np.abs(a - b).max()))
+                worst_rel = max(worst_rel, float((np.abs(a - b) / np.maximum(1.0, np.abs(b))).max()))
+        calls = native.CALLS.shadow_bounds
+        report["scenes"][name] = {"vectors": vectors, "bitwise": bitwise, "max_abs": worst, "max_rel": worst_rel,
+                                  "native_calls": calls}
+        check(calls == NATIVE_SEEDS, f"native {name}: Scene.shadow_bounds took the C++ path {calls} of {NATIVE_SEEDS} times")
+        check(worst_rel <= 1e-4, f"native {name}: C++ vs numpy shadow bounds differ by {worst_rel} (relative)")
+    print(f"native: build {build_s:.2f} s", flush=True)
+    print("native " + json.dumps(report), flush=True)
+    return report
+
+
+def phase_sharded(device, width=1920, height=1080):
+    """``parallel/sharding.py`` on the card, each case a main path (each
+    rank renders its batch twice, ``render_case(warm=True)``: the first
+    render timed apart; rank 0's raster launch counts are set to 0 just
+    before the second and read just after), each batch bitwise the direct
+    ``render_frame`` of its frames: world size 1 in this process, (dp=1,
+    sp=1) on the chess flagship (``ranks.backend_for``'s backend: NCCL);
+    then two ranks of a gloo group, started once for both cases
+    (``render_cases``), both on ``cuda:0`` (NCCL refuses two ranks on one
+    card): (1, 2) on the flagship (1088 rows pad to 1152, two blocks of
+    576), and (2, 1) on the default scene, two frames 20 s of sun apart,
+    one per rank."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from syzygy_tpu_torch.parallel import ranks
+    from syzygy_tpu_torch.parallel.dryrun import case_params, render_case
+    from syzygy_tpu_torch.renderer.frame import render_frame
+    from syzygy_tpu_torch.scene.pack import pack_geometry, upload_frame_params
+
+    def direct(scene_name, frames, dt):
+        scene, library, params = case_params(scene_name, frames, dt, width / height)
+        config = default_scene_config(scene, library, width=width, height=height)
+        geometry = pack_geometry(scene, library, device)
+        images = torch.stack([render_frame(geometry, upload_frame_params(p, device), config) for p in params])
+        return images.cpu(), {"metallic_reflection": config.metallic_reflection}
+
+    cases, launches = [], {"visibility": 0, "depth": 0}
+
+    def record(mesh, backend, scene_name, results, want):
+        first = results[0]
+        for rank, result in enumerate(results):
+            check(torch.equal(result["images"], want), f"sharded {mesh} rank {rank}: differs from render_frame")
+        check(first["launches"]["visibility"] >= 1 and first["launches"]["depth"] >= 1,
+              f"sharded {mesh}: rank 0 launched {first['launches']}")
+        for kind in launches:
+            launches[kind] += first["launches"][kind]
+        case = {
+            "mesh": mesh, "ranks": len(results), "backend": backend, "scene": scene_name,
+            "frames": int(want.shape[0]), "ms_per_frame": [r["ms"] / (want.shape[0] // mesh[0]) for r in results],
+            "first_render_ms_per_frame": [r["first_ms"] / (want.shape[0] // mesh[0]) for r in results],
+            "rank0_launches": first["launches"], "bitwise_render_frame": True,
+        }
+        cases.append(case)
+        print(f"sharded {mesh} on {len(results)} {backend} rank(s), {scene_name} {width}x{height}: "
+              f"rank 0 {case['ms_per_frame'][0]:.3f} ms/frame (first render "
+              f"{case['first_render_ms_per_frame'][0]:.3f}), launches {first['launches']}, bitwise render_frame",
+              flush=True)
+
+    flagship_want, flagship_cfg = direct("flagship", 1, 1.0 / 60.0)
+    backend = ranks.backend_for("cuda", 1)
+    with tempfile.TemporaryDirectory(prefix="szg_world1_") as tmp:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/store", world_size=1, rank=0,
+                                timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT))
+        try:
+            one = render_case(1, 1, width, height, 1, device="cuda", scene="flagship", config=flagship_cfg, warm=True)
+        finally:
+            dist.destroy_process_group()
+    record((1, 1), backend, "flagship", [one], flagship_want)
+
+    default_want, default_cfg = direct("default", 2, SHARDED_DEFAULT_DT)
+    check(not torch.equal(default_want[0], default_want[1]), "sharded (2, 1): the two frames are the same")
+    spawned = (
+        ((1, 2), "flagship", flagship_want, flagship_cfg, 1.0 / 60.0),
+        ((2, 1), "default", default_want, default_cfg, SHARDED_DEFAULT_DT),
+    )
+    per_rank = ranks.run(
+        2, "syzygy_tpu_torch.parallel.dryrun:render_cases",
+        dict(cases=[dict(dp=mesh[0], sp=mesh[1], width=width, height=height, frames=mesh[0], scene=scene_name,
+                         dt=dt, config=cfg, warm=True) for mesh, scene_name, _, cfg, dt in spawned],
+             device="cuda"),
+        device="cuda", timeout=SHARDED_TIMEOUT,
+    )
+    for k, (mesh, scene_name, want, _, _) in enumerate(spawned):
+        results = [r[k] for r in per_rank]
+        check(all(r["device"] == "cuda:0" for r in results), f"sharded {mesh}: ranks on {[r['device'] for r in results]}")
+        record(mesh, ranks.backend_for("cuda", 2), scene_name, results, want)
+    report = {"cases": cases, "launches": launches}
+    print("sharded " + json.dumps(report), flush=True)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke test needs a GPU", file=sys.stderr)
@@ -1082,29 +1231,41 @@ def main() -> int:
     torch.cuda.set_device(device)
     print(nvidia_smi_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    try:
+    start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args, **kwargs):
         t0 = time.perf_counter()
-        build.build()
-        print(f"build: {time.perf_counter() - t0:.2f} s (all sources, concurrently)", flush=True)
+        out = fn(*args, **kwargs)
+        seconds[name] = time.perf_counter() - t0
+        print(f"phase {name}: {seconds[name]:.2f} s", flush=True)
+        return out
+
+    try:
+        timed("build", build.build)
         for name in build.SOURCES:
             print(f"ptxas {name}: {build.ptxas_report(name)}", flush=True)
-        compare = phase_compare_raster(device)
-        gather_report = phase_compare_gather(device)[0]
+        timed("native", phase_native)
+        compare = timed("compare_raster", phase_compare_raster, device)
+        gather_report = timed("compare_gather", phase_compare_gather, device)[0]
         scene, library = default_scene()
         scene.tick(0.0)
-        default_frames = phase_frames("default", scene, library, device, n_frames=4, dt_seconds=20.0)
+        default_frames = timed("frames_default", phase_frames, "default", scene, library, device, n_frames=4,
+                               dt_seconds=20.0)
         chess, chess_lib = flagship()
-        flagship_frames = phase_frames("flagship", chess, chess_lib, device, n_frames=3)
-        exact_frames = phase_flagship_1080p(device)
-        gather_launches = phase_gather_bench()
-        phase_golden(device)
-        phase_flagship_golden(device)
-        phase_feature_frames(device)
-        app_report = phase_app(device)
-        viewer_report = phase_viewer(device)
+        flagship_frames = timed("frames_flagship", phase_frames, "flagship", chess, chess_lib, device, n_frames=3)
+        exact_frames = timed("flagship_1080p", phase_flagship_1080p, device)
+        gather_launches = timed("gather_bench", phase_gather_bench)
+        timed("golden", phase_golden, device)
+        timed("flagship_golden", phase_flagship_golden, device)
+        timed("feature_frames", phase_feature_frames, device)
+        app_report = timed("app", phase_app, device)
+        viewer_report = timed("viewer", phase_viewer, device)
+        sharded_report = timed("sharded", phase_sharded, device)
     except (SmokeFailure, RuntimeError, ValueError, IndexError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
+    print(f"chip_smoke: {time.perf_counter() - start:.2f} s; phases " + json.dumps(seconds), flush=True)
 
     by_name = {r["name"]: r for r in compare}
     src = "syzygy_tpu_torch/csrc/raster.cu"
@@ -1114,7 +1275,8 @@ def main() -> int:
         return {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(
-                f["launches"][kind] for f in (default_frames, flagship_frames, exact_frames, app_report, viewer_report)
+                f["launches"][kind]
+                for f in (default_frames, flagship_frames, exact_frames, app_report, viewer_report, sharded_report)
             ),
             "max_abs_err": max(by_name[n]["max_abs_err"] for n in compared),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

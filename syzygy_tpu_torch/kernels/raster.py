@@ -317,18 +317,50 @@ def setup_triangles(
     corner_clip: torch.Tensor | None = None,  # (T, 3, 4) pre-gathered corners
     depth_bias_constant: float = 0.0,
     depth_bias_slope: float = 0.0,
+    group=None,
 ) -> TriSetup:
     """Vectorized triangle setup with near-plane clipping
     (``raster.py:363-479``). ``width``/``height`` are the viewport,
-    ``grid_*`` the padded raster target (default: rounded up to tiles)."""
+    ``grid_*`` the padded raster target (default: rounded up to tiles).
+
+    ``group`` (a ``parallel.sharding.Group``, the reference's
+    ``shard_axis``): when it has several ranks and their count divides T,
+    each rank computes the slot records of a contiguous T / size triangle
+    slice and ``all_gather`` rejoins them in the slot order of the
+    unsharded setup (the raster's depth ties depend on it), bitwise the
+    unsharded result; the grid-dependent tile ranges stay per rank.
+    Otherwise every rank runs the whole setup."""
     grid_width = -(-width // TILE_W) * TILE_W if grid_width is None else grid_width
     grid_height = -(-height // TILE_H) * TILE_H if grid_height is None else grid_height
-    corners = clip[triangles.long()] if corner_clip is None else corner_clip
-    cols, all_bary, w_all = _setup_slots(
-        corners, tri_valid, width, height, cull_keep_sign,
+    lo, loc, split = triangle_share(group, tri_valid.shape[0])
+    part = slice(lo, lo + loc)
+    corners = clip[triangles[part].long()] if corner_clip is None else corner_clip[part]
+    local = _setup_slots(
+        corners, tri_valid[part], width, height, cull_keep_sign,
         depth_bias_constant, depth_bias_slope,
     )
+    cols, all_bary, w_all = (rejoin_slots(group.all_gather(x)) for x in local) if split else local
     return _finish_setup(cols, all_bary, w_all, grid_width, grid_height, grid_origin)
+
+
+def triangle_share(group, n_t: int) -> tuple[int, int, bool]:
+    """(first, count, split): this rank's contiguous slice of ``n_t``
+    triangles under ``group``, and whether the work is split at all (a
+    group of several ranks whose count divides ``n_t``; else the whole
+    range, (0, n_t), on every rank)."""
+    if group is None or group.size == 1 or n_t % group.size:
+        return 0, n_t, False
+    loc = n_t // group.size
+    return group.index * loc, loc, True
+
+
+def rejoin_slots(gathered: torch.Tensor) -> torch.Tensor:
+    """Per-rank slot rows of contiguous triangle slices, (ranks, 2 * loc,
+    ...) with each rank's A slots before its B slots, -> the canonical
+    (2T, ...) layout: every A slot in triangle order, then every B slot."""
+    loc = gathered.shape[1] // 2
+    tail = gathered.shape[2:]
+    return torch.cat([gathered[:, :loc].reshape(-1, *tail), gathered[:, loc:].reshape(-1, *tail)])
 
 
 # ---------------------------------------------------------------------------

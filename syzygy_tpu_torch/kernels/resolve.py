@@ -18,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from syzygy_tpu_torch.kernels.raster import TriSetup, VisibilityBuffer
+from syzygy_tpu_torch.kernels.raster import TriSetup, VisibilityBuffer, rejoin_slots, triangle_share
 from syzygy_tpu_torch.math.geometry import matvec, matvec_fma, sqrt_rn, vec_norm
 from syzygy_tpu_torch.scene.pack import GeometryStatic
 
@@ -141,36 +141,29 @@ def _cotangent_frame_normal(n, dp1, dp2, duv1, duv2, normal_map):
     return perturbed / _norm(perturbed)
 
 
-def build_resolve_records(setup: TriSetup, geometry: GeometryStatic, world_positions, world_normals):
-    """Pre-joined per-slot attribute records, (T2pad, 49) f32
-    (``resolve.py:303-460``).
-
-    Layout: 0:3 corner w | 3:12 corner world pos | 12:21 corner normals |
-    21:27 corner uvs | 27:30 dp1 | 30:33 dp2 | 33:35 duv1 | 35:37 duv2 |
-    37:49 color/normal/orm atlas rects (small ints, exact in f32). Slot t
-    and T+t share original triangle t; pad slots keep corner_w == 1 so
-    background pixels (which gather some record) make no 0/0."""
-    t2_pad = setup.orig_tri.shape[0]
-    tris = geometry.triangles.long()
+def _record_rows(tris, tri_material, corner_bary, corner_w, geometry: GeometryStatic, world_positions, world_normals):
+    """Records of the A and B slots of triangles ``tris`` (n, 3):
+    ``corner_bary``/``corner_w`` hold their 2n slot rows, the n A slots
+    first."""
+    tris = tris.long()
     n_t = tris.shape[0]
 
     def tile2(x):
         return torch.cat([x, x], dim=0)
 
-    p = tile2(world_positions[tris])  # (2T, 3, 3)
+    p = tile2(world_positions[tris])  # (2n, 3, 3)
     n = tile2(world_normals[tris])
     u = tile2(geometry.uvs[tris])
-    cb = setup.corner_bary[: 2 * n_t]
-    w3 = torch.cat([cb, 1.0 - cb[..., 0:1] - cb[..., 1:2]], dim=-1)
+    w3 = torch.cat([corner_bary, 1.0 - corner_bary[..., 0:1] - corner_bary[..., 1:2]], dim=-1)
     # clipped corners' attributes: c[t, k] = sum_j w3[t, k, j] * attr[t, j]
-    cp = matvec_fma(p.transpose(1, 2)[:, None], w3)  # (2T, 3, 3)
+    cp = matvec_fma(p.transpose(1, 2)[:, None], w3)  # (2n, 3, 3)
     cn = matvec_fma(n.transpose(1, 2)[:, None], w3)
-    cu = matvec_fma(u.transpose(1, 2)[:, None], w3)  # (2T, 3, 2)
+    cu = matvec_fma(u.transpose(1, 2)[:, None], w3)  # (2n, 3, 2)
     t2 = 2 * n_t
-    rects = tile2(geometry.tex_rects[geometry.materials[geometry.tri_material.long()].long()])
-    rows = torch.cat(
+    rects = tile2(geometry.tex_rects[geometry.materials[tri_material.long()].long()])
+    return torch.cat(
         [
-            setup.corner_w[: 2 * n_t],
+            corner_w,
             cp.reshape(t2, 9),
             cn.reshape(t2, 9),
             cu.reshape(t2, 6),
@@ -182,7 +175,35 @@ def build_resolve_records(setup: TriSetup, geometry: GeometryStatic, world_posit
         ],
         dim=-1,
     )
-    pad = t2_pad - t2
+
+
+def build_resolve_records(setup: TriSetup, geometry: GeometryStatic, world_positions, world_normals, group=None):
+    """Pre-joined per-slot attribute records, (T2pad, 49) f32
+    (``resolve.py:303-460``).
+
+    Layout: 0:3 corner w | 3:12 corner world pos | 12:21 corner normals |
+    21:27 corner uvs | 27:30 dp1 | 30:33 dp2 | 33:35 duv1 | 35:37 duv2 |
+    37:49 color/normal/orm atlas rects (small ints, exact in f32). Slot t
+    and T+t share original triangle t; pad slots keep corner_w == 1 so
+    background pixels (which gather some record) make no 0/0.
+
+    ``group``: as :func:`kernels.raster.setup_triangles`, each rank builds
+    the records of a contiguous triangle slice (its A and B slots) and
+    ``all_gather`` rejoins them in slot order, bitwise."""
+    t2_pad = setup.orig_tri.shape[0]
+    n_t = geometry.triangles.shape[0]
+    lo, loc, split = triangle_share(group, n_t)
+
+    def slots(x):  # the slice's A rows, then its B rows
+        return torch.cat([x[lo : lo + loc], x[n_t + lo : n_t + lo + loc]])
+
+    rows = _record_rows(
+        geometry.triangles[lo : lo + loc], geometry.tri_material[lo : lo + loc],
+        slots(setup.corner_bary), slots(setup.corner_w), geometry, world_positions, world_normals,
+    )
+    if split:
+        rows = rejoin_slots(group.all_gather(rows))
+    pad = t2_pad - 2 * n_t
     if pad:
         pad_rows = torch.cat(
             [
@@ -253,14 +274,15 @@ def _planes(valid, color_tex, normal, position, orm_tex) -> GBuffer:
 
 
 def resolve_gbuffer(vis: VisibilityBuffer, setup: TriSetup, geometry: GeometryStatic,
-                    world_positions, world_normals) -> GBuffer:
+                    world_positions, world_normals, group=None) -> GBuffer:
     """Visibility buffer -> 5 G-buffer planes (``resolve.py:463-483``):
     the record form for single-mip geometry, the multi-gather form when the
     geometry carries a mip pyramid (level-dependent rect rows cannot be
-    joined per triangle)."""
+    joined per triangle). ``group`` splits the records' build
+    (:func:`build_resolve_records`)."""
     if geometry.tex_rects_mips is not None:
         return _resolve_gbuffer_gathered(vis, setup, geometry, world_positions, world_normals)
-    records = build_resolve_records(setup, geometry, world_positions, world_normals)
+    records = build_resolve_records(setup, geometry, world_positions, world_normals, group)
     return resolve_gbuffer_from_records(vis, records, geometry)
 
 

@@ -59,16 +59,29 @@ def vec_norm(v: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Ten
     return sqrt_rn(torch.sum(v * v, dim=dim, keepdim=keepdim))
 
 
+# The reference's world axes as CPU constants; device code takes a copy on
+# its own device with world_forward/world_up/world_right(device).
+WORLD_FORWARD = torch.tensor([0.0, 0.0, 1.0], dtype=F32)
+WORLD_UP = torch.tensor([0.0, -1.0, 0.0], dtype=F32)
+WORLD_RIGHT = torch.tensor([1.0, 0.0, 0.0], dtype=F32)
+
+
+def _f32(x) -> torch.Tensor:
+    """An f32 tensor of ``x`` (a tensor keeps its device; anything else
+    lands on the CPU)."""
+    return x.to(F32) if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x, np.float32))
+
+
 def world_forward(device) -> torch.Tensor:
-    return torch.tensor([0.0, 0.0, 1.0], dtype=F32, device=device)
+    return WORLD_FORWARD.to(device, copy=True)
 
 
 def world_up(device) -> torch.Tensor:
-    return torch.tensor([0.0, -1.0, 0.0], dtype=F32, device=device)
+    return WORLD_UP.to(device, copy=True)
 
 
 def world_right(device) -> torch.Tensor:
-    return torch.tensor([1.0, 0.0, 0.0], dtype=F32, device=device)
+    return WORLD_RIGHT.to(device, copy=True)
 
 
 def matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -231,6 +244,18 @@ def scale_matrix(s: torch.Tensor) -> torch.Tensor:
     )
 
 
+def transform_vk(position, euler_angles) -> torch.Tensor:
+    """``transformVk`` (``geometryhelpers.cpp:147-151``): translate @ orientate4."""
+    return matmul4(translate(_f32(position)), orientate4(_f32(euler_angles)))
+
+
+def transform_to_matrix(translation, euler_angles, scale) -> torch.Tensor:
+    """``Transform::toMatrix`` (``geometry/transform.cpp:11-15``): T @ R @ S."""
+    return matmul4(
+        matmul4(translate(_f32(translation)), orientate4(_f32(euler_angles))), scale_matrix(_f32(scale))
+    )
+
+
 def view_vk(position: torch.Tensor, euler_angles: torch.Tensor):
     """``viewVk`` = inverse(transformVk), computed as R^T @ T(-p)."""
     rot_t = orientate4(euler_angles).transpose(-1, -2)
@@ -356,6 +381,11 @@ class AABB(NamedTuple):
             device=self.center.device,
         )
         return self.center[..., None, :] + self.half_extent[..., None, :] * signs
+
+
+def aabb_from_min_max(min_v, max_v) -> AABB:
+    mn, mx = _f32(min_v), _f32(max_v)
+    return AABB(center=(mn + mx) * 0.5, half_extent=(mx - mn) * 0.5)
 
 
 def project_point_on_plane(plane_point, plane_normal, point) -> torch.Tensor:

@@ -79,10 +79,12 @@ class RenderConfig:
     ``supersample``, ``metallic_reflection``, ``aerial_lut`` and
     ``aerial_lut_far_m``, ``fast_sky`` and ``fast_sky_reflection`` (read
     by the per-pixel-integral sky only, as in the reference).
+    ``shard_triangle_setup`` splits the camera setup and the resolve
+    records over the row group of :func:`render_frame_rows` (``group=``).
     Scheduling-only knobs of the TPU build (program fusion, row chunks,
-    tile-list capacity, raster tile/chunk sizes, ``raster_vector``, setup
-    sharding) are accepted and ignored. TPU-only modes raise when set away
-    from their defaults (:meth:`check`)."""
+    tile-list capacity, raster tile/chunk sizes, ``raster_vector``) are
+    accepted and ignored. TPU-only modes raise when set away from their
+    defaults (:meth:`check`)."""
 
     width: int = 1920
     height: int = 1080
@@ -174,10 +176,17 @@ class RenderConfig:
         return _round_up(self.render_height, TILE_H)
 
 
-def _shadow_pass(geometry: GeometryStatic, world_h, state, config: RenderConfig, maps_to_raster):
+def _shadow_pass(geometry: GeometryStatic, world_h, state, config: RenderConfig, maps_to_raster, group=None):
     """Depth-only rasters, one per map in ``maps_to_raster``
     (``frame.py:515-687``: front-face culling, reverse-Z, depth bias).
-    Every other map stays all-zero, which equals an empty raster."""
+    Every other map stays all-zero, which equals an empty raster.
+
+    With a ``group`` of several ranks (``parallel.sharding.Group``) the
+    maps are split over it (``frame.py:619-655``): each rank rasters a
+    contiguous share of ``maps_to_raster``, ``ceil(n / size)`` slots long
+    so that every rank gathers the same shape (the list is the same on
+    every rank: they render one frame), and the gathered maps go back to
+    their slots."""
     dim = config.shadow_dim
     d, s = state.directional_lights, state.spot_lights
     pv = torch.cat([matmul4(d.projection, d.view), matmul4(s.projection, s.view)], dim=0)
@@ -188,7 +197,8 @@ def _shadow_pass(geometry: GeometryStatic, world_h, state, config: RenderConfig,
         return maps
     tri_valid = geometry.tri_valid & geometry.tri_casts_shadow
     corners_world = world_h[geometry.triangles.long()]  # (T, 3, 4), gathered once
-    for i in maps_to_raster:
+
+    def raster_one(i):
         setup = setup_triangles(
             None, geometry.triangles, tri_valid, dim, dim,
             cull_keep_sign=-1,  # front-face culling (pipelines.cpp:654-663)
@@ -196,16 +206,30 @@ def _shadow_pass(geometry: GeometryStatic, world_h, state, config: RenderConfig,
             depth_bias_constant=config.shadow_bias_constant,
             depth_bias_slope=config.shadow_bias_slope,
         )
-        maps[i] = rasterize(setup, dim, dim, depth_only=True).depth
+        return rasterize(setup, dim, dim, depth_only=True).depth
+
+    split = group is not None and group.size > 1
+    size, index = (group.size, group.index) if split else (1, 0)
+    per = -(-len(maps_to_raster) // size)
+    local = torch.zeros((per, dim, dim), dtype=F32, device=world_h.device)
+    for k, i in enumerate(maps_to_raster[index * per : (index + 1) * per]):
+        local[k] = raster_one(i)
+    flat = group.all_gather(local).reshape(-1, dim, dim) if split else local
+    maps[torch.tensor(maps_to_raster, device=maps.device)] = flat[: len(maps_to_raster)]
     return maps
 
 
-def _geometry(geometry: GeometryStatic, params: FrameParams, config: RenderConfig, row0: int, local_rows: int):
+def _geometry(
+    geometry: GeometryStatic, params: FrameParams, config: RenderConfig, row0: int, local_rows: int,
+    group=None,
+):
     """The geometry stage (``_geometry_body``, ``frame.py:707-775``): frame
     state, vertex transforms, the shadow rasters of the maps anything
     samples, the camera raster of rows ``[row0, row0 + local_rows)`` and
     the G-buffer resolve. Returns (state, vis, gbuffer, shadow_maps,
-    activity, proj_view); the last two feed the shading stage."""
+    activity, proj_view); the last two feed the shading stage. ``group``
+    splits the shadow rasters and, with ``config.shard_triangle_setup``,
+    the camera setup and the resolve records over its ranks."""
     state = prepare_frame_state(params)
     cam = state.camera
     proj_view = matmul4(cam.projection, cam.view)
@@ -221,16 +245,18 @@ def _geometry(geometry: GeometryStatic, params: FrameParams, config: RenderConfi
         config.n_shadow_maps,
     )
     world_h = torch.cat([world, torch.ones_like(world[:, :1])], dim=-1)
-    shadow_maps = _shadow_pass(geometry, world_h, state, config, activity.shadow_maps)
+    shadow_maps = _shadow_pass(geometry, world_h, state, config, activity.shadow_maps, group)
+    setup_group = group if config.shard_triangle_setup else None
 
     setup = setup_triangles(
         clip, geometry.triangles, geometry.tri_valid,
         config.render_width, config.render_height,
         cull_keep_sign=+1,  # back-face cull, CW front (deferred.cpp:503-713)
         grid_width=config.padded_width, grid_height=local_rows, grid_origin=(row0, 0),
+        group=setup_group,
     )
     vis = rasterize(setup, config.padded_width, local_rows, origin=(row0, 0))
-    gbuffer = resolve_gbuffer(vis, setup, geometry, world, world_normals)
+    gbuffer = resolve_gbuffer(vis, setup, geometry, world, world_normals, group=setup_group)
     return state, vis, gbuffer, shadow_maps, activity, proj_view
 
 
@@ -248,17 +274,18 @@ def _stage_geometry(
 
 def render_frame_linear(
     geometry: GeometryStatic, params: FrameParams, config: RenderConfig,
-    row0: int = 0, local_rows: int | None = None,
+    row0: int = 0, local_rows: int | None = None, group=None,
 ):
     """Geometry + shading + debug lines: the pre-filter, pre-OETF color of
     rows ``[row0, row0 + local_rows)`` of the padded render target (the
     whole target by default), (rows, padded_width, 3). ``params`` holds
     tensors on the geometry's device (:func:`scene.pack.upload_frame_params`
-    or :func:`scene.pack.unflatten_frame_params`)."""
+    or :func:`scene.pack.unflatten_frame_params`). ``group``: as
+    :func:`render_frame_rows`."""
     config.check()
     local_rows = config.padded_height if local_rows is None else local_rows
     state, vis, gbuffer, shadow_maps, activity, proj_view = _geometry(
-        geometry, params, config, row0, local_rows
+        geometry, params, config, row0, local_rows, group
     )
     color = torch.clamp(
         deferred_lighting(
@@ -340,7 +367,8 @@ def render_frame_packed(geometry: GeometryStatic, buffer, spec: FrameParamSpec, 
 
 
 def render_frame_rows(
-    geometry: GeometryStatic, params: FrameParams, config: RenderConfig, row0: int, local_rows: int
+    geometry: GeometryStatic, params: FrameParams, config: RenderConfig, row0: int, local_rows: int,
+    group=None,
 ):
     """Rows ``[row0, row0 + local_rows)`` of the padded frame, encoded,
     (local_rows / supersample, padded_width / supersample, 3), not cropped
@@ -352,9 +380,13 @@ def render_frame_rows(
     the sharp level; the debug overlay is drawn in the block's own
     coordinates; both as in the reference.
 
-    The reference's ``shadow_shard_axis`` spreads the shadow rasters over a
-    device mesh. It has no meaning on one device and belongs to the port
-    of ``parallel/sharding.py``."""
+    ``group`` (the reference's ``shadow_shard_axis``): a
+    ``parallel.sharding.Group`` of the ranks that render this frame's row
+    blocks, every one of them calling with its own block. The shadow
+    rasters, and with ``config.shard_triangle_setup`` the camera setup and
+    the resolve records, are split over it and rejoined with
+    ``all_gather``, bitwise what one rank computes alone. None (the
+    default) runs everything here."""
     if local_rows % TILE_H or row0 % TILE_H:
         raise ValueError(f"row block [{row0}, {row0 + local_rows}) is not a multiple of {TILE_H} rows")
-    return _encode(render_frame_linear(geometry, params, config, row0, local_rows), config)
+    return _encode(render_frame_linear(geometry, params, config, row0, local_rows, group), config)

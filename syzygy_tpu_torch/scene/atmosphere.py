@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from syzygy_tpu_torch.device import to_tensor
-from syzygy_tpu_torch.math.geometry import AABB, forward_from_eulers, vec_norm, world_up
+from syzygy_tpu_torch.math.geometry import AABB, aabb_from_min_max, forward_from_eulers, vec_norm, world_up
 from syzygy_tpu_torch.scene.lights import DirectionalLight, make_directional
 
 KILOMETERS_PER_MEGAMETER = 1000.0
@@ -194,10 +194,7 @@ def _sun_cosine(sun_euler_angles: torch.Tensor) -> torch.Tensor:
 def bake_directional(raw: AtmosphereRaw, bounds_min, bounds_max) -> DirectionalLight:
     """Sun + moon baking (``scene.cpp:584-623,718-737``): a stacked (2, ...)
     DirectionalLight, row 0 = sun, row 1 = moon."""
-    bounds = AABB(
-        center=(bounds_min + bounds_max) * 0.5,
-        half_extent=(bounds_max - bounds_min) * 0.5,
-    )
+    bounds = aabb_from_min_max(bounds_min, bounds_max)
     sunlight = _create_sunlight(bounds, raw.sun_euler_angles)
     moonlight = _create_moonlight(bounds, _sun_cosine(raw.sun_euler_angles), SUNSET_COSINE)
     return DirectionalLight(

@@ -265,7 +265,29 @@ class Scene:
 
     def shadow_bounds(self) -> tuple[np.ndarray, np.ndarray]:
         """World AABB over all shadow-casting geometry
-        (``scene.cpp:95-148``), numpy f32."""
+        (``scene.cpp:95-148``), numpy f32. Takes the C++ core
+        (:mod:`syzygy_tpu_torch.native`) when it loads and the numpy path
+        below otherwise, as the reference does: the two differ in the
+        last bits where the compiled core contracts into fused
+        multiply-adds, and each matches the reference's path of its
+        kind bitwise."""
+        from syzygy_tpu_torch import native
+
+        if native.available():
+            corners, trs = [], []
+            for instance in self.geometry:
+                if not instance.casts_shadow or not instance.render or instance.mesh is None:
+                    continue
+                cs = _aabb_corners(*instance.mesh.vertex_bounds)
+                for t in instance.transforms:
+                    corners.append(cs)
+                    trs.append((t.translation, t.euler_angles, t.scale))
+            if not trs:
+                return np.zeros(3, np.float32), np.zeros(3, np.float32)
+            mats = native.trs_to_matrices(*(np.asarray([x[k] for x in trs], np.float32) for k in range(3)))
+            _, mn, mx = native.shadow_bounds(np.ones(len(trs), np.uint8), np.stack(corners), mats)
+            return mn, mx
+
         mn = np.full(3, np.finfo(np.float32).max, np.float32)
         mx = np.full(3, np.finfo(np.float32).min, np.float32)
         found = False
