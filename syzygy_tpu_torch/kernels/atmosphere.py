@@ -62,33 +62,6 @@ def transmittance_rmu_to_uv(atmo: AtmospherePacked, radius, mu, width: int, heig
     return tex_coord_from_unit_range(x_mu, width), tex_coord_from_unit_range(x_radius, height)
 
 
-def transmittance_rmu_to_uv_fma(atmo: AtmospherePacked, radius, mu, width: int, height: int):
-    """:func:`transmittance_rmu_to_uv` with the reference's compiled
-    arithmetic: every product whose only use is an add or subtract in the
-    same fusion is contracted (``h`` too, computed at run time). Near the
-    ground ``rho = sqrt(r^2 - R^2)`` cancels, so the plain form's extra
-    roundings move a sample there visibly. Its float64 fused multiply-adds
-    cost several kernel launches each, so the per-step integrals (whose
-    compiled reference keeps the plain form) keep it too, and the sky
-    pass's per-pixel environment sample takes this one."""
-    pl_r2 = atmo.planet_radius_mm * atmo.planet_radius_mm
-    atm_r = atmo.atmosphere_radius_mm
-    h = sqrt_rn(torch.clamp(fma32(atm_r, atm_r, -pl_r2), min=0.0))
-    rho = sqrt_rn(torch.clamp(fma32(radius, radius, -pl_r2), min=0.0))
-    minus_one = torch.full_like(mu, -1.0)
-    inner = fma32(radius * radius, fma32(mu, mu, minus_one), atm_r * atm_r)
-    d = torch.clamp(fma32(-radius, mu, safe_sqrt(inner)), min=0.0)
-    d_min = atm_r - radius
-    x_mu = (d - d_min) / torch.clamp(rho + h - d_min, min=1e-12)
-    x_radius = rho / torch.clamp(h, min=1e-12)
-
-    def tex(value, dim):  # tex_coord_from_unit_range, contracted
-        scale = torch.full_like(value, 1.0 - 1.0 / dim)
-        return fma32(value, scale, torch.full_like(value, 0.5 / dim))
-
-    return tex(x_mu, width), tex(x_radius, height)
-
-
 def transmittance_uv_to_rmu(atmo: AtmospherePacked, u, v, width: int, height: int):
     """``transmittanceLUT_UV_to_RMu`` (``common.glinl:69-102``)."""
     x_mu = unit_range_from_tex_coord(u, width)

@@ -32,8 +32,8 @@ from syzygy_tpu_torch.kernels.atmosphere import (
     safe_sqrt,
     sample_lut_bilinear,
     sample_transmittance_ray,
+    sample_transmittance_rmu,
     sample_transmittance_segment,
-    transmittance_rmu_to_uv_fma,
 )
 from syzygy_tpu_torch.kernels.lighting import (
     PBRTexel,
@@ -252,10 +252,10 @@ def sample_environment_shared(atmo, transmittance_lut, skyview_lut, position, di
     """``sampleEnvironmentLuminanceTransfer`` (``camera.comp:286-301``) with
     the ground (planet hit) and sky (miss) branches sharing one skyview and
     one transmittance sample (``sky.py:264-362``) -> (luminance, sun disk)."""
-    # with the reference's compiled arithmetic: the ground's glint (specular
-    # power 160), its planet hit and its transmittance near the horizon
-    # amplify each rounding of these, so plain forms miss the reference by
-    # more than the pass's tolerance there
+    # the planet hit and the glint's dot products with the reference's
+    # compiled arithmetic: the ground's glint (specular power 160) and its
+    # planet hit near the horizon amplify each rounding of these, so plain
+    # forms miss the reference by more than the pass's tolerance there
     hit, dist, _ = ray_sphere_intersect_fma(position, direction, atmo.planet_radius_mm)
     hit = hit & (dist > 0.0)
     surface = fma32(dist[..., None], direction, position)
@@ -271,10 +271,9 @@ def sample_environment_shared(atmo, transmittance_lut, skyview_lut, position, di
     mu_srf = torch.sum(surface * ld_b, dim=-1) / (r_srf * _norm3(ld_b)[..., 0])
     r_ray = _norm3(position)[..., 0]
     mu_ray = torch.sum(position * direction, dim=-1) / (r_ray * _norm3(direction)[..., 0])
-    t_lut_h, t_lut_w = transmittance_lut.shape[0], transmittance_lut.shape[1]
-    t_shared = sample_lut_bilinear(transmittance_lut, *transmittance_rmu_to_uv_fma(
-        atmo, torch.where(hit, r_srf, r_ray), torch.where(hit, mu_srf, mu_ray), t_lut_w, t_lut_h
-    ))
+    t_shared = sample_transmittance_rmu(
+        transmittance_lut, atmo, torch.where(hit, r_srf, r_ray), torch.where(hit, mu_srf, mu_ray)
+    )
 
     # ground shading (sampleGround, camera.comp:203-235)
     albedo, nl = _ground_albedo_nl(atmo, surface, direction)

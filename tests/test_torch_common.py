@@ -142,6 +142,55 @@ def reference_inputs(which: str):
     return geometry, params, geo_t, params_t, config
 
 
+def reference_compiled_and_op_by_op(fn, *args):
+    """``fn(*args)`` of the reference twice, as numpy: compiled
+    (``jax.jit``) and op by op (``jax.disable_jit``: the same float32
+    formulas without XLA's fusion and contraction). Which products a fusion
+    contracts, and where it turns a division into a reciprocal multiply,
+    differ between x86 hosts and jax versions, so a port test holds the port
+    to the op-by-op value and to the compiled value only within the spread
+    between the two."""
+    compiled = jax.tree.map(np.asarray, jax.jit(fn)(*args))
+    with jax.disable_jit():
+        op_by_op = jax.tree.map(np.asarray, fn(*args))
+    return compiled, op_by_op
+
+
+def own_spread_rows(compiled, op_by_op):
+    """The reference's own f32 spread per row: the largest difference
+    between its compiled value and its op-by-op value. The reference pins
+    float32 inside its loops, so a float64 run of it is not to be had."""
+    return np.abs(op_by_op - compiled).reshape(compiled.shape[0], -1).max(axis=1)
+
+
+def assert_rows_within_own_spread(out, reference, spread_rows, floor_rows, what):
+    """Every row of ``out`` lies within the reference's own spread in that
+    row plus ``floor_rows`` of ``reference`` (its compiled or its op-by-op
+    value); prints the maxima."""
+    err_rows = np.abs(out - reference).reshape(reference.shape[0], -1).max(axis=1)
+    excess = err_rows - spread_rows
+    row = int(np.argmax(excess))
+    print(
+        f"{what}: max |port - ref| {err_rows.max():.3e}, reference's own spread {spread_rows.max():.3e}, "
+        f"largest excess over it {excess[row]:.3e} (row {row}: floor {floor_rows[row]:.3e})"
+    )
+    worst = int(np.argmax(excess - floor_rows))
+    assert (excess <= floor_rows).all(), (what, worst, err_rows[worst], spread_rows[worst], floor_rows[worst])
+
+
+def port_q8(q8):
+    """A reference ``PackedLUTQ8`` -> the port's ``LUTQ8`` (the same codes
+    and scales)."""
+    from syzygy_tpu_torch.kernels.atmosphere import LUTQ8
+
+    words = np.asarray(q8.words)
+    codes = np.stack([(words[:, j] >> (8 * b)) & 255 for j in range(3) for b in range(4)], -1)
+    return LUTQ8(
+        torch.from_numpy(codes.astype(np.uint8).reshape(q8.h, q8.w, 12)),
+        torch.from_numpy(words[:, 3].view(np.float32).reshape(q8.h, q8.w).copy()),
+    )
+
+
 def port_config(reference_config, **overrides):
     """The port's RenderConfig with the reference config's field values."""
     from syzygy_tpu_torch.renderer.frame import RenderConfig
