@@ -20,7 +20,8 @@ no result line):
    CUDA events and on the device (``torch.profiler``), beside its bound:
    the raster on the default scene's 1920x1088 camera and 1024^2 sun map,
    the 254k-triangle dense sphere field's 960x544 camera and 1024^2 sun
-   map, and the chess flagship's 1920x1088 camera and 1024^2 sun map, then
+   map, and the chess flagship's 1920x1088 camera and 1024^2 and 4096^2 sun
+   maps, then
    two cases of the kernel's design at that scale (the flagship camera
    with every triangle twice: coplanar depth ties; 20,000 small triangles
    on 4 tiles: lists cut across a tile's 8 CTAs); the lane gather at
@@ -45,8 +46,11 @@ no result line):
    (``default_scene_256x128.png``) and the flagship at 512x288
    (``flagship_512x288.npz``, visibility ``flagship_vis_512x288.npz``);
    at that size also the mip-mapped resolve, the debug lines (with and
-   without the atmosphere, and under supersample 2) and the fast sky
-   (with and without the aerial LUT), card against the CPU port;
+   without the atmosphere, and under supersample 2), the fast sky
+   (with and without the aerial LUT), ``pcf_q8``, ``lut_f16``,
+   ``share_sun_pcf``, the layout-only modes together (``pcf_bitmask``,
+   ``pcf_window2d``, ``raster_unroll=False``) and ``shadow_dim=4096``,
+   card against the CPU port, each case's card ms/frame printed;
 6. the app and the viewer, each a main path with the launch counters set
    to 0 just before and read just after: ``python -m
    syzygy_tpu_torch.app``'s ``main`` on the chess flagship at 1920x1080
@@ -110,6 +114,7 @@ FP32_OPS_PER_S = 67e12
 # csrc/raster.cu per (pixel, slot): 2 mul + 4 add/sub + 2 fma (2 each) + 6 compares
 RASTER_OPS_PER_TEST = 16
 REPS = 20
+FEATURE_REPS = 3  # timed card frames per feature case
 TRACE_ATTEMPTS = 3  # device_ms's traces before it gives up
 GATHER_SIZES = (1_999_872, 33_554_432)  # the bench's default S; 2^25 (268 MB of idx + out)
 NATIVE_SEEDS = 40  # rotated-caster scenes per scene in phase_native
@@ -381,6 +386,12 @@ def phase_compare_raster(device):
     chess, chess_lib = flagship()
     fgeometry, flagship_reports = both("flagship", chess, chess_lib)
     check(int(fgeometry.tri_valid.sum()) == 14_316, "the flagship is not 14,316 triangles")
+    # the largest map a config of the feature frames asks for (shadow_dim=4096)
+    big = default_scene_config(chess, chess_lib, shadow_dim=4096)
+    params = upload_frame_params(pack_frame_params(chess, big.width / big.height), device)
+    flagship_reports.append(
+        compare_raster("flagship_sun_shadow_4096", raster_setups(fgeometry, params, big)[1], 4096, 4096, True)
+    )
 
     # the design's cases at flagship scale: depth ties and split lists
     config = default_scene_config(chess, chess_lib)
@@ -716,11 +727,18 @@ def phase_feature_frames(device):
     (512x288), card against the CPU port, RMSE <= 1e-3 each: the
     mip-mapped resolve, the debug lines (with the atmosphere, without it,
     and under supersample 2), the fast sky with and without the aerial
-    LUT. Every case must differ from the plain frame (the feature is
-    live)."""
+    LUT, the u8 PCF segments, the f16 sky LUT copies, the shared sun PCF,
+    the layout-only PCF and raster modes together, and 4096-texel shadow
+    maps (the depth raster at 4096^2, the direct f32 PCF). The mip, fast
+    sky, q8 and f16-LUT frames must differ from the plain frame (the
+    feature is live); the shared sun PCF and the layout-only modes must
+    equal it bitwise. Each case's card frame time (CUDA events, mean of
+    ``FEATURE_REPS`` after one warm-up) and raster launches per frame are
+    printed beside the card's name and power limit."""
     import numpy as np
 
-    from syzygy_tpu_torch.renderer.frame import RenderConfig, render_frame
+    from syzygy_tpu_torch.kernels.raster import LAUNCHES
+    from syzygy_tpu_torch.renderer.frame import RenderConfig, _stage_geometry, render_frame
     from syzygy_tpu_torch.scene.pack import pack_frame_params, pack_geometry, upload_frame_params
 
     w, h = 512, 288
@@ -734,8 +752,13 @@ def phase_feature_frames(device):
         "debug_lines_supersample2": dict(debug_lines=True, supersample=2, width=w // 2, height=h // 2),
         "fast_sky": dict(fast_sky=True),
         "fast_sky_exact": dict(fast_sky=True, aerial_lut=False),
+        "pcf_q8": dict(pcf_q8=True),
+        "lut_f16": dict(lut_f16=True),
+        "share_sun_pcf": dict(share_sun_pcf=True),
+        "layout_only": dict(pcf_bitmask=True, pcf_window2d=True, raster_unroll=False),
+        "shadow_dim_4096": dict(shadow_dim=4096),
     }
-    results, frames = {}, {}
+    results, frames, card_ms = {}, {}, {}
     for name, overrides in cases.items():
         config = RenderConfig(**(base | overrides))
         host = pack_frame_params(scene, w / h, debug_lines=config.debug_lines)
@@ -743,6 +766,17 @@ def phase_feature_frames(device):
         for dev in (device, torch.device("cpu")):
             geometry = pack_geometry(scene, library, dev, mipmaps=(name == "mipmaps"))
             out[dev.type] = render_frame(geometry, upload_frame_params(host, dev), config).cpu().numpy()
+            if dev.type == "cuda":
+                before = (LAUNCHES.visibility, LAUNCHES.depth)
+                ms = time_ms(lambda: render_frame(geometry, upload_frame_params(host, dev), config), FEATURE_REPS)
+                frames_run = FEATURE_REPS + 1  # the warm-up launches too
+                card_ms[name] = {
+                    "ms_per_frame": ms,
+                    "launches_per_frame": {
+                        "visibility": (LAUNCHES.visibility - before[0]) / frames_run,
+                        "depth": (LAUNCHES.depth - before[1]) / frames_run,
+                    },
+                }
         check(out["cuda"].shape == (config.height, config.width, 3), f"{name}: shape {out['cuda'].shape}")
         check(bool(np.isfinite(out["cuda"]).all()), f"{name}: non-finite values")
         frames[name] = out["cuda"]
@@ -750,13 +784,24 @@ def phase_feature_frames(device):
             "rmse_card_vs_cpu": float(np.sqrt(np.mean((out["cuda"] - out["cpu"]) ** 2))),
             "max_abs_card_vs_cpu": float(np.abs(out["cuda"] - out["cpu"]).max()),
         }
+        if name in ("plain", "shadow_dim_4096"):  # do card and CPU part at the shadow maps?
+            maps = [
+                _stage_geometry(pack_geometry(scene, library, dev), upload_frame_params(host, dev), config)[3].cpu()
+                for dev in (device, torch.device("cpu"))
+            ]
+            results[name]["shadow_map_texels_card_vs_cpu"] = int((maps[0] != maps[1]).sum())
     for name in ("debug_lines", "debug_lines_no_atmosphere"):
         f = frames[name]  # the overlay's green, encoded: (0, ~1, 0)
         results[name]["line_pixels"] = int(((f[..., 0] == 0) & (f[..., 1] > 0.999) & (f[..., 2] == 0)).sum())
         check(results[name]["line_pixels"] > 500, f"{name}: {results[name]['line_pixels']} line pixels")
-    for name in ("mipmaps", "fast_sky", "fast_sky_exact"):
+    for name in ("mipmaps", "fast_sky", "fast_sky_exact", "pcf_q8", "lut_f16"):
         results[name]["rmse_vs_plain"] = float(np.sqrt(np.mean((frames[name] - frames["plain"]) ** 2)))
         check(results[name]["rmse_vs_plain"] > 0.0, f"{name}: the frame equals the plain one")
+    for name in ("share_sun_pcf", "layout_only"):
+        results[name]["bitwise_plain"] = bool(np.array_equal(frames[name], frames["plain"]))
+        check(results[name]["bitwise_plain"], f"{name}: the card frame differs from the plain card frame")
+    check(card_ms["shadow_dim_4096"]["launches_per_frame"]["depth"] >= 1, "shadow_dim_4096: no depth raster launched")
+    print(f"feature_frames card ms ({nvidia_smi_line()}) " + json.dumps(card_ms), flush=True)
     print("feature_frames " + json.dumps(results), flush=True)
     for name, r in results.items():
         check(r["rmse_card_vs_cpu"] <= 1e-3, f"{name}: card vs CPU RMSE {r['rmse_card_vs_cpu']}")
@@ -1290,7 +1335,8 @@ def main() -> int:
         ),
         raster_entry(
             "raster_depth", "syzygy_tpu/kernels/raster.py:1005", "depth", "flagship_sun_shadow",
-            ("default_sun_shadow", "dense_sun_shadow", "flagship_sun_shadow", "flagship_camera_rows_depth"),
+            ("default_sun_shadow", "dense_sun_shadow", "flagship_sun_shadow", "flagship_sun_shadow_4096",
+             "flagship_camera_rows_depth"),
         ),
         {
             "name": "lane_gather", "route": "cuda", "source": "syzygy_tpu_torch/csrc/gather.cu",

@@ -244,7 +244,7 @@ loadTextures();
 
 # the exceptions an edit or a load raises when what it was given is wrong;
 # anything else is a fault of the viewer and answers 500
-REFUSED = (KeyError, IndexError, AttributeError, ValueError, TypeError, NotImplementedError)
+REFUSED = (KeyError, IndexError, AttributeError, ValueError, TypeError)
 _LOCAL_HOSTS = ("127.0.0.1", "localhost", "::1")
 # leading bytes of the image formats a texture load names when it refuses them
 _IMAGE_MAGIC = (

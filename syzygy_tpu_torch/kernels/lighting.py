@@ -3,9 +3,11 @@
 Port of ``syzygy_tpu/kernels/lighting.py`` (``deferred/lights.comp``,
 ``gbuffer/pbrFunctions.glinl``, ``shadowmap.glinl``). The PCF samples its
 25 taps directly (``_sample_shadow_map_naive``, ``lighting.py:492-515``),
-which is bitwise-equal to the reference's segment-table form; with
-``f16=True`` the map is rounded to float16 before the compare, as the
-reference's f16 segment tables are.
+which is bitwise-equal to the reference's segment-table forms (the select
+tree, ``bitmask``, ``window2d``, ``seg8``); with ``f16=True`` the map is
+rounded to float16 before the compare, as the reference's f16 segment
+tables are, up to 2048 texels (larger maps read f32 there). ``q8=True``
+decodes the reference's u8 block-quantized segments.
 
 Light loops run only over lights that can contribute. Which lights those
 are is decided on the host from one small device->host copy per frame
@@ -112,12 +114,47 @@ def compute_shadow_frame(light_proj_view, position, normal):
     return coord, dx, dy
 
 
-def sample_shadow_map(shadow_map, coord, dx, dy, f16: bool = False):
+PCF_PAD = 8  # zero texels left of a segment row (``lighting.py:122``)
+PCF_WINDOW_MAX_DIM = 2048  # larger maps take the direct f32 taps (``:125``)
+
+
+def sample_shadow_map(
+    shadow_map, coord, dx, dy, bitmask: bool = False, f16: bool = False, q8: bool = False,
+    window2d: bool = False, seg8: bool = False,
+):
     """``sampleShadowMap`` (``shadowmap.glinl:32-63``): 5x5 PCF, NEAREST,
-    clamp-to-border(0), reverse-Z occluder test -> (H, W) light factor."""
+    clamp-to-border(0), reverse-Z occluder test -> (H, W) light factor.
+
+    The reference's precedence (``lighting.py:186-213``): above
+    ``PCF_WINDOW_MAX_DIM`` texels the taps read the f32 map whatever the
+    flags say; else ``q8`` decodes u8 segments (:func:`_pcf_q8`) and
+    ``f16`` rounds the map. ``bitmask``, ``window2d`` and ``seg8`` are
+    the reference's gather layouts of the same taps: accepted, and
+    computed by the one direct form."""
+    del bitmask, window2d, seg8  # layouts of the same taps
     size = shadow_map.shape[-1]
-    if f16:
-        shadow_map = shadow_map.to(torch.float16).to(F32)
+    if size <= PCF_WINDOW_MAX_DIM:
+        if q8:
+            return _pcf_q8(shadow_map, coord, dx, dy)
+        if f16:
+            shadow_map = shadow_map.to(torch.float16).to(F32)
+    return _pcf_taps(size, coord, dx, dy, lambda iyc, ix: shadow_map[iyc, ix])
+
+
+def directional_pcf(light, material: PBRTexel, shadow_map, **flags):
+    """A directional light's (H, W) PCF visibility at the material's
+    surface (``lights.comp:52-60``, ``camera.comp:349-356``); ``flags``
+    are :func:`sample_shadow_map`'s."""
+    coord, dx, dy = compute_shadow_frame(
+        matmul4(light.projection, light.view), material.position, material.normal
+    )
+    return sample_shadow_map(shadow_map, coord, dx, dy, **flags)
+
+
+def _pcf_taps(size: int, coord, dx, dy, texel):
+    """The 25 taps: ``texel(row, column)`` reads the occluder depth at
+    indices clamped into the map; taps outside it read 0
+    (``lighting.py:492-515``)."""
     frag_depth = coord[..., 2]
     du = 1.5 * dx / size
     dv = 1.5 * dy / size
@@ -131,9 +168,47 @@ def sample_shadow_map(shadow_map, coord, dx, dy, f16: bool = False):
         for ox in range(-2, 3):
             ix = torch.floor((u + ox * du) * size).to(torch.int64)
             inside = iy_in & (ix >= 0) & (ix < size)
-            occ = torch.where(inside, shadow_map[iyc, torch.clamp(ix, 0, size - 1)], 0.0)
+            occ = torch.where(inside, texel(iyc, torch.clamp(ix, 0, size - 1)), 0.0)
             occluded += ((occ > 0.0) & (occ > frag_depth)).to(F32)
     return 1.0 - occluded / 25.0
+
+
+def _pcf_q8(shadow_map, coord, dx, dy):
+    """u8 block-scaled PCF segments (``lighting.py:419-489``). Each row of
+    the map, zero-padded by ``PCF_PAD`` on the left, is cut into 16-texel
+    segments at stride 8; a segment stores its taps as u8 fractions of its
+    own depth range against the f16-rounded min and step. A tap row takes
+    the one segment that holds all five of its taps (the reference's
+    coverage bound: dx, dy <= 1) and decodes ``lo + q * step``, rounded
+    after the product and again after the sum as the reference's op-by-op
+    value is. The reference's u32 packing of the codes is its gather
+    layout; the decoded taps are the same."""
+    size = shadow_map.shape[-1]
+    dev = shadow_map.device
+    pad = PCF_PAD
+    n_w = (size + 2 * pad) // 8
+    padded = torch.zeros((size, n_w * 8 + 8), dtype=F32, device=dev)
+    padded[:, pad : pad + size] = shadow_map
+    seg_idx = (torch.arange(n_w, device=dev) * 8)[:, None] + torch.arange(16, device=dev)[None, :]
+    windows = padded[:, seg_idx]  # (size, n_w, 16)
+    lo = torch.amin(windows, dim=-1, keepdim=True)
+    hi = torch.amax(windows, dim=-1, keepdim=True)
+    lo16 = lo.to(torch.float16).to(F32)
+    step16 = ((hi - lo) * torch.tensor(1.0 / 255.0, dtype=F32, device=dev)).to(torch.float16).to(F32)
+    step = torch.clamp(step16, min=1e-30)
+    codes = torch.clamp(torch.round((windows - lo16) / step), 0.0, 255.0).reshape(-1)
+    lo16, step16 = lo16.reshape(-1), step16.reshape(-1)
+
+    start = torch.floor(coord[..., 0] * size).to(torch.int64) - 3 + pad  # leftmost tap, padded
+    w = torch.clamp(torch.div(start, 8, rounding_mode="floor"), 0, n_w - 1)
+
+    def texel(iyc, ix):
+        seg = iyc * n_w + w
+        c = torch.clamp(ix + pad - 8 * w, 0, 15)  # the tap's channel in its segment
+        scaled = codes[seg * 16 + c] * step16[seg]
+        return lo16[seg] + scaled  # two roundings, no fused multiply-add
+
+    return _pcf_taps(size, coord, dx, dy, texel)
 
 
 def _light_contribution(material, view_dir, light_dir, spectral):
@@ -224,16 +299,25 @@ def deferred_lighting(
     shadow_maps,  # (D + S, dim, dim) f32
     activity: LightActivity,
     pcf_f16: bool = False,
+    pcf_bitmask: bool = False,
+    pcf_q8: bool = False,
+    pcf_window2d: bool = False,
+    sun_shadow=None,
 ):
     """``deferred/lights.comp`` main loop -> (H, W, 3) linear color
     (``lighting.py:528-791``). Background texels (diffuse alpha < 1) stay
     black. Shadowed directionals accumulate first, then the dim ones
-    without PCF, then spots — the reference's order."""
+    without PCF, then spots — the reference's order. The ``pcf_*`` flags
+    go to :func:`sample_shadow_map`. ``sun_shadow`` (H, W), when given,
+    is directional light 0's PCF, evaluated once by the caller and shared
+    with the sky pass (``RenderConfig.share_sun_pcf``); it takes the place
+    of that light's own PCF in the same accumulation order."""
     material = convert_pbr(gbuffer)
     lit_mask = gbuffer.diffuse[..., 3:4] >= 1.0
     view_dir = _normalize(camera.position[:3] - material.position)
     total = torch.zeros_like(material.position)
     n_dir = directional.strength.shape[0]
+    pcf = dict(bitmask=pcf_bitmask, f16=pcf_f16, q8=pcf_q8, window2d=pcf_window2d)
 
     def dir_contribution(i, shadow):
         light = _take(directional, i)
@@ -242,16 +326,18 @@ def deferred_lighting(
         return _light_contribution(material, view_dir, light_dir, spectral)
 
     for i in activity.shadowed_dirs:
-        light = _take(directional, i)
-        coord, dx, dy = compute_shadow_frame(matmul4(light.projection, light.view), material.position, material.normal)
-        total = total + dir_contribution(i, sample_shadow_map(shadow_maps[i], coord, dx, dy, f16=pcf_f16))
+        if i == 0 and sun_shadow is not None:
+            shadow = sun_shadow
+        else:
+            shadow = directional_pcf(_take(directional, i), material, shadow_maps[i], **pcf)
+        total = total + dir_contribution(i, shadow)
     for i in activity.unshadowed_dirs:
         total = total + dir_contribution(i, torch.ones_like(material.position[..., 0]))
 
     for j in activity.spots:
         spot = _take(spots, j)
         coord, dx, dy = compute_shadow_frame(matmul4(spot.projection, spot.view), material.position, material.normal)
-        shadow = sample_shadow_map(shadow_maps[n_dir + j], coord, dx, dy, f16=pcf_f16)
+        shadow = sample_shadow_map(shadow_maps[n_dir + j], coord, dx, dy, **pcf)
         light_dir = _normalize(-spot.forward[:3])
         # quadratic falloff + UV edge softening (lights.comp:73-91)
         dist = vec_norm(spot.position[:3] - material.position, dim=-1, keepdim=True)

@@ -40,14 +40,13 @@ from syzygy_tpu_torch.kernels.lighting import (
     _dot1,
     _normalize,
     compute_fresnel,
-    compute_shadow_frame,
     convert_pbr,
     diffuse_brdf,
-    sample_shadow_map,
+    directional_pcf,
     specular_brdf,
 )
 from syzygy_tpu_torch.kernels.resolve import GBuffer
-from syzygy_tpu_torch.math.geometry import dot3_fma, fma32, matmul4, matvec, sqrt_rn, vec_norm
+from syzygy_tpu_torch.math.geometry import dot3_fma, fma32, matvec, sqrt_rn, vec_norm
 from syzygy_tpu_torch.scene.atmosphere import AtmospherePacked
 from syzygy_tpu_torch.scene.camera import CameraPacked
 from syzygy_tpu_torch.scene.lights import DirectionalLight
@@ -536,9 +535,16 @@ def sky_camera_pass(
     row_origin: int = 0,  # global row of this block's first row
     fast: bool = False,  # exp-step integrals (quirk-exact formulation only)
     fast_reflection: bool = False,  # exp-step integral for the bounce's environment only
+    pcf_bitmask: bool = False,
+    pcf_q8: bool = False,
+    pcf_window2d: bool = False,
+    sun_shadow=None,  # (H, W) sun PCF shared with the lighting pass, or None
 ):
     """``camera.comp`` main (``:303-395``) -> (H, W, 3) tonemapped color
-    (``sky.py:598-822``)."""
+    (``sky.py:598-822``). The ``pcf_*`` flags go to the sun's
+    :func:`sample_shadow_map`; a given ``sun_shadow`` (the same PCF,
+    evaluated once for both passes: ``RenderConfig.share_sun_pcf``)
+    replaces it."""
     h, w = scene_depth.shape
     flip = _flip(scene_depth.device)
     position, direction, xs, ys = camera_rays(camera, atmo, h, w, draw_extent, row_origin)
@@ -554,10 +560,11 @@ def sky_camera_pass(
     is_env = (scene_depth == 0.0) | (material.position[..., 1] > 0.0)
     dist_surface = vec_norm(sky_material.position - pos_grid)
 
-    coord, dx, dy = compute_shadow_frame(
-        matmul4(sun_light.projection, sun_light.view), material.position, material.normal
-    )
-    sun_shadow = sample_shadow_map(sun_shadow_map, coord, dx, dy, f16=pcf_f16)
+    if sun_shadow is None:
+        sun_shadow = directional_pcf(
+            sun_light, material, sun_shadow_map,
+            bitmask=pcf_bitmask, f16=pcf_f16, q8=pcf_q8, window2d=pcf_window2d,
+        )
 
     if aerial is not None:
         env_transfer, geo_transfer = _transfers_aerial(

@@ -17,8 +17,8 @@ Port of ``syzygy_tpu/renderer/frame.py`` (``render_frame``,
 The TPU-only structure of the reference (three jitted programs, the
 68-row ``lax.map`` sky chunks that dodge a TPU compiler crash, quad/joint
 atlas packing, PCF segment tables) has no counterpart here; the storage
-precisions that change results (f16 atlas, f16 PCF depths, q8 sky-view)
-are kept.
+precisions that change results (f16 atlas, f16 or u8 PCF depths, q8
+sky-view, f16 sampling copies of the sky's LUTs) are kept.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from syzygy_tpu_torch.kernels.atmosphere import (
     pack_lut_q8,
 )
 from syzygy_tpu_torch.kernels.debuglines import draw_lines
-from syzygy_tpu_torch.kernels.lighting import deferred_lighting, light_activity
+from syzygy_tpu_torch.kernels.lighting import convert_pbr, deferred_lighting, directional_pcf, light_activity
 from syzygy_tpu_torch.kernels.raster import TILE_H, TILE_W, rasterize, setup_triangles
 from syzygy_tpu_torch.kernels.resolve import (
     resolve_gbuffer,
@@ -74,17 +74,18 @@ class RenderConfig:
     defaults (``frame.py:184-512``).
 
     Honoured: the dimensions, shadow-map count/bias, LUT dims,
-    ``pcf_f16``, ``shadowless_strength_eps``, ``skyview_q8``/``skyview_f16``,
+    ``pcf_f16``, ``pcf_q8``, ``shadowless_strength_eps``,
+    ``share_sun_pcf``, ``skyview_q8``/``skyview_f16``, ``lut_f16``,
     ``skyview_tseg``, ``render_atmosphere``, ``debug_lines``, ``oetf``,
     ``supersample``, ``metallic_reflection``, ``aerial_lut`` and
     ``aerial_lut_far_m``, ``fast_sky`` and ``fast_sky_reflection`` (read
     by the per-pixel-integral sky only, as in the reference).
     ``shard_triangle_setup`` splits the camera setup and the resolve
     records over the row group of :func:`render_frame_rows` (``group=``).
-    Scheduling-only knobs of the TPU build (program fusion, row chunks,
-    tile-list capacity, raster tile/chunk sizes, ``raster_vector``) are
-    accepted and ignored. TPU-only modes raise when set away from their
-    defaults (:meth:`check`)."""
+    ``pcf_bitmask`` and ``pcf_window2d`` are gather layouts of the same
+    PCF taps, and the scheduling-only knobs of the TPU build (program
+    fusion, row chunks, tile-list capacity, raster tile/chunk sizes,
+    ``raster_unroll``, ``raster_vector``) are accepted and ignored."""
 
     width: int = 1920
     height: int = 1080
@@ -127,12 +128,6 @@ class RenderConfig:
     fast_sky_reflection: bool = True
     shard_triangle_setup: bool = True
 
-    # TPU-only modes (gather-layout experiments; must stay at their defaults)
-    _TPU_ONLY = {
-        "pcf_bitmask": False, "pcf_q8": False, "pcf_window2d": False,
-        "lut_f16": False, "share_sun_pcf": False, "raster_unroll": True,
-    }
-
     # sizes that must be positive (the first eight are the reference
     # editor's checks, properties.py:289-295) or at least zero
     _POSITIVE = (
@@ -148,12 +143,6 @@ class RenderConfig:
             least = 1 if name in self._POSITIVE else 0
             if not isinstance(value, int) or value < least:
                 raise ValueError(f"RenderConfig.{name} must be an integer >= {least}, got {value!r}")
-        for name, default in self._TPU_ONLY.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"RenderConfig.{name}={getattr(self, name)!r} is not supported "
-                    f"by the torch port (only {default!r})"
-                )
         if self.oetf not in ("srgb", "pure_gamma"):
             raise ValueError(f"unknown oetf {self.oetf!r}")
         if self.shadow_dim % TILE_W or self.shadow_dim % TILE_H:
@@ -287,16 +276,19 @@ def render_frame_linear(
     state, vis, gbuffer, shadow_maps, activity, proj_view = _geometry(
         geometry, params, config, row0, local_rows, group
     )
+    sun_shadow = None
+    if config.share_sun_pcf and config.render_atmosphere:
+        sun_shadow = _sun_pcf(state, gbuffer, shadow_maps, config)
     color = torch.clamp(
         deferred_lighting(
             gbuffer, state.camera, state.directional_lights, state.spot_lights, shadow_maps,
-            activity, pcf_f16=config.pcf_f16,
+            activity, sun_shadow=sun_shadow, **_pcf_flags(config),
         ),
         0.0,
         1.0,
     )
     if config.render_atmosphere:
-        color = _sky(state, color, vis.depth, gbuffer, shadow_maps, config, row0)
+        color = _sky(state, color, vis.depth, gbuffer, shadow_maps, config, row0, sun_shadow)
     if config.debug_lines:
         # the reference hands the overlay (width, height), not the render
         # extent, also under supersample > 1 (frame.py:1068): reproduced
@@ -307,9 +299,30 @@ def render_frame_linear(
     return color
 
 
-def _sky(state, lit, depth, gbuffer, shadow_maps, config: RenderConfig, row0: int):
+def _pcf_flags(config: RenderConfig) -> dict:
+    return dict(
+        pcf_bitmask=config.pcf_bitmask, pcf_f16=config.pcf_f16, pcf_q8=config.pcf_q8,
+        pcf_window2d=config.pcf_window2d,
+    )
+
+
+def _sun_pcf(state, gbuffer, shadow_maps, config: RenderConfig):
+    """The sun's (H, W) PCF visibility that the lighting (directional
+    light 0) and the sky pass both read (``share_sun_pcf``,
+    ``frame.py:790-815``), evaluated once for the row block."""
+    sun = type(state.directional_lights)(*[x[0] for x in state.directional_lights])
+    return directional_pcf(
+        sun, convert_pbr(gbuffer), shadow_maps[0], bitmask=config.pcf_bitmask, f16=config.pcf_f16,
+        q8=config.pcf_q8, window2d=config.pcf_window2d,
+    )
+
+
+def _sky(state, lit, depth, gbuffer, shadow_maps, config: RenderConfig, row0: int, sun_shadow=None):
     """The atmosphere LUTs and the sky camera pass over the lit color
-    (``_stage_sky``, ``frame.py:884-1055``) -> clamped (rows, W, 3)."""
+    (``_stage_sky``, ``frame.py:884-1055``) -> clamped (rows, W, 3).
+    Every LUT is built from the f32 transmittance LUT; with ``lut_f16``
+    the pass samples f16 copies of the transmittance LUT and the aerial
+    volume, widened to f32 before filtering (``frame.py:938-955``)."""
     atmo, cam = state.atmosphere, state.camera
     t_lut = compute_transmittance_lut(atmo, config.transmittance_width, config.transmittance_height)
     zero = torch.zeros_like(atmo.planet_radius_mm)
@@ -329,15 +342,26 @@ def _sky(state, lit, depth, gbuffer, shadow_maps, config: RenderConfig, row0: in
         if config.skyview_tseg:
             tseg = pack_tseg_rows(compute_skyview_tseg(atmo, t_lut, origin_mm, config.skyview_height))
         aerial = build_aerial_lut(atmo, t_lut, cam, origin_mm, t_max_mm)
+    if config.lut_f16:
+        t_lut = _f16_copy(t_lut)
+        if aerial is not None:
+            aerial = aerial._replace(volume=_f16_copy(aerial.volume))
     sun = type(state.directional_lights)(*[x[0] for x in state.directional_lights])
     color = sky_camera_pass(
         lit, depth, gbuffer, cam, atmo, t_lut, sky_lut, sun, shadow_maps[0],
         draw_extent=(config.render_width, config.render_height),
         aerial=aerial, aerial_t_max=t_max_mm, tseg_rows=tseg,
-        metallic_reflection=config.metallic_reflection, pcf_f16=config.pcf_f16,
+        metallic_reflection=config.metallic_reflection,
         row_origin=row0, fast=config.fast_sky, fast_reflection=config.fast_sky_reflection,
+        sun_shadow=sun_shadow, **_pcf_flags(config),
     )
     return torch.clamp(color, 0.0, 1.0)
+
+
+def _f16_copy(table):
+    """A sampling copy rounded to f16 and widened back: the values the
+    reference's f16 tables give its f32 filtering."""
+    return table.to(torch.float16).to(F32)
 
 
 def _encode(color, config: RenderConfig):

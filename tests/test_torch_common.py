@@ -259,27 +259,37 @@ def test_render_config_fields_match_reference():
     assert port == ref
 
 
-TPU_ONLY_MODES = [
+FORMER_TPU_ONLY_MODES = [
     ("pcf_bitmask", True), ("pcf_q8", True), ("pcf_window2d", True),
     ("lut_f16", True), ("share_sun_pcf", True), ("raster_unroll", False),
 ]
 PORTED_MODES = [("aerial_lut", False), ("fast_sky", True), ("debug_lines", True)]
 
 
-@pytest.mark.parametrize("field,value", TPU_ONLY_MODES + PORTED_MODES)
+@pytest.mark.parametrize("field,value", FORMER_TPU_ONLY_MODES + PORTED_MODES)
 def test_render_config_rejects_unported_modes(field, value):
-    """The TPU's gather-layout modes raise; the quirk-exact sky, the fast
-    sky and the debug lines are ported and pass the check."""
-    from syzygy_tpu_torch.renderer.frame import RenderConfig
+    """No mode is left unported: the TPU's gather-layout and storage modes
+    pass the check as the quirk-exact sky, the fast sky and the debug
+    lines do, and ``render_frame`` accepts each (a 128x64 frame;
+    ``tests/test_torch_frame_modes.py`` holds the frames to the
+    reference)."""
+    from syzygy_tpu_torch.renderer.frame import RenderConfig, render_frame
+    from syzygy_tpu_torch.scene.pack import pack_frame_params, pack_geometry, upload_frame_params
+    from syzygy_tpu_torch.scene.scene import default_scene
 
-    config = RenderConfig(**{field: value})
-    if (field, value) in PORTED_MODES:
-        config.check()
-    else:
-        with pytest.raises(NotImplementedError):
-            config.check()
-    assert not hasattr(RenderConfig, "_NOT_PORTED")
+    config = RenderConfig(
+        width=128, height=64, shadow_dim=128, skyview_width=64, skyview_height=32,
+        **{field: value},
+    )
+    config.check()
+    assert not hasattr(RenderConfig, "_TPU_ONLY")
     RenderConfig().check()  # the defaults are all supported
+    if (field, value) in FORMER_TPU_ONLY_MODES:
+        scene, lib = default_scene()
+        frame = render_frame(
+            pack_geometry(scene, lib, "cpu"), upload_frame_params(pack_frame_params(scene, 2.0), "cpu"), config
+        )
+        assert tuple(frame.shape) == (64, 128, 3) and bool(torch.isfinite(frame).all())
 
 
 def test_mipmaps_not_ported():

@@ -179,8 +179,7 @@ def test_apply_config_field():
         apply_config_field(cfg, "nope", "1")
     with pytest.raises(ValueError):
         apply_config_field(cfg, "height", "0")
-    with pytest.raises(NotImplementedError):
-        apply_config_field(cfg, "pcf_bitmask", "true")  # a TPU-only mode
+    assert apply_config_field(cfg, "pcf_bitmask", "true").pcf_bitmask is True  # a former TPU-only mode
 
 
 def _edited_pair():
