@@ -39,8 +39,12 @@ no result line):
    fast_sky_reflection=False``), 3 frames, held against
    ``tests/goldens/flagship_1080p.npz`` under that tool's verdict, then
    the same frame through ``render_frame_packed`` and as two row blocks
-   of ``render_frame_rows``, bitwise ``render_frame``'s; and the port's
-   gather bench (``tools/gather_bench.py``, g1-g7) at its default size;
+   of ``render_frame_rows``, bitwise ``render_frame``'s; the port's
+   bench (``python -m syzygy_tpu_torch.bench``'s ``measure_scene``) on its
+   three scenes at 1920x1080, 8 timed frames each after the warm-up, each
+   last frame bitwise a direct ``render_frame_packed`` of its row; and the
+   port's gather bench (``tools/gather_bench.py``, g1-g7) at its default
+   size;
 5. parity at the golden configs, card against the CPU port and against
    the JAX package's goldens: the default scene at 256x128
    (``default_scene_256x128.png``) and the flagship at 512x288
@@ -50,7 +54,13 @@ no result line):
    (with and without the aerial LUT), ``pcf_q8``, ``lut_f16``,
    ``share_sun_pcf``, the layout-only modes together (``pcf_bitmask``,
    ``pcf_window2d``, ``raster_unroll=False``) and ``shadow_dim=4096``,
-   card against the CPU port, each case's card ms/frame printed;
+   card against the CPU port, each case's card ms/frame printed; for the
+   plain and the 4096 case the sun's shadow lookup card against CPU stage
+   by stage (visibility, G-buffer position and normal, shadow
+   coordinates, PCF factors and their taps; the card's shadow frame and
+   taps must be what the CPU's code makes of the card's inputs), and two
+   roundings on each device (``torch.sum``'s order over 3 terms, the
+   PCF's division by 25);
 6. the app and the viewer, each a main path with the launch counters set
    to 0 just before and read just after: ``python -m
    syzygy_tpu_torch.app``'s ``main`` on the chess flagship at 1920x1080
@@ -106,7 +116,6 @@ EXACT_CONFIG = dict(width=1920, height=1080, n_shadow_maps=4, aerial_lut=False, 
 GOLDEN_STORAGE = dict(pcf_f16=False, skyview_q8=False, skyview_f16=False, shadowless_strength_eps=0.0)
 PARITY_OUTLIER, PARITY_RMSE, PARITY_OUTLIER_SHARE = 0.01, 1e-3, 10_000
 ROW_SPLIT = 512  # the row blocks [0, 512) and [512, 1088) of the 1088-row padded target
-FLAGSHIP_EYE, FLAGSHIP_TARGET = (13.0, -8.0, -14.0), (0.0, -1.0, 0.0)  # bench.py:264-271
 
 # published H100 SXM peaks (NVIDIA data sheet) for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -195,23 +204,12 @@ def default_scene_config(scene, library, **overrides):
     )
 
 
-def look_at(scene, eye, target):
-    from syzygy_tpu_torch.math.geometry import eulers_from_forward
-
-    fwd = torch.tensor(target, dtype=torch.float32, device="cpu") - torch.tensor(eye, dtype=torch.float32, device="cpu")
-    scene.camera.position = tuple(float(x) for x in eye)
-    scene.camera.euler_angles = tuple(float(x) for x in eulers_from_forward(fwd))
-
-
 def flagship():
     """The chess flagship through the port's glTF path, framed as
-    ``bench.py:264-271`` frames it."""
-    from syzygy_tpu_torch.assets.chess import flagship_scene
+    ``python -m syzygy_tpu_torch.bench`` frames it (``bench.py:260-271``)."""
+    from syzygy_tpu_torch.bench import chess_scene
 
-    scene, library = flagship_scene()
-    scene.tick(0.0)
-    look_at(scene, FLAGSHIP_EYE, FLAGSHIP_TARGET)
-    return scene, library
+    return chess_scene()
 
 
 def setup_with_screen(corners, valid, width, height, cull, **grid):
@@ -362,7 +360,8 @@ def compare_raster(name, setup_screen, width, height, depth_only, row0=0):
 
 def phase_compare_raster(device):
     from syzygy_tpu_torch.scene.pack import pack_frame_params, pack_geometry, upload_frame_params
-    from syzygy_tpu_torch.scene.scene import default_scene, dense_sphere_field
+    from syzygy_tpu_torch.bench import dense_scene
+    from syzygy_tpu_torch.scene.scene import default_scene
 
     def both(prefix, scene, library, **overrides):
         config = default_scene_config(scene, library, **overrides)
@@ -378,8 +377,7 @@ def phase_compare_raster(device):
     scene.tick(0.0)
     _, reports = both("default", scene, library)
 
-    dense, dense_lib = dense_sphere_field()
-    look_at(dense, (18.0, -16.0, -22.0), (0.0, -6.0, 0.0))
+    dense, dense_lib = dense_scene()
     dgeometry, dense_reports = both("dense", dense, dense_lib, width=960, height=544)
     check(int(dgeometry.tri_valid.sum()) == 253_952, "dense field is not 253,952 triangles")
 
@@ -522,6 +520,7 @@ def phase_gather_bench():
 def phase_golden(device):
     import numpy as np
 
+    from syzygy_tpu_torch.bench import SCENE_EYE, SCENE_TARGET, look_at
     from syzygy_tpu_torch.renderer.frame import RenderConfig, render_frame
     from syzygy_tpu_torch.scene.pack import pack_frame_params, pack_geometry, upload_frame_params
     from syzygy_tpu_torch.scene.scene import default_scene
@@ -531,7 +530,7 @@ def phase_golden(device):
     scene.sun_animation.time = 0.35
     scene.sun_animation.frozen = True
     scene.tick(0.0)
-    look_at(scene, (18.0, -16.0, -22.0), (0.0, -6.0, 0.0))
+    look_at(scene, SCENE_EYE, SCENE_TARGET)
     config = RenderConfig(width=256, height=128, shadow_dim=256, skyview_width=128, skyview_height=64)
     frames = {}
     for dev in (device, torch.device("cpu")):
@@ -738,7 +737,7 @@ def phase_feature_frames(device):
     import numpy as np
 
     from syzygy_tpu_torch.kernels.raster import LAUNCHES
-    from syzygy_tpu_torch.renderer.frame import RenderConfig, _stage_geometry, render_frame
+    from syzygy_tpu_torch.renderer.frame import RenderConfig, render_frame
     from syzygy_tpu_torch.scene.pack import pack_frame_params, pack_geometry, upload_frame_params
 
     w, h = 512, 288
@@ -784,12 +783,18 @@ def phase_feature_frames(device):
             "rmse_card_vs_cpu": float(np.sqrt(np.mean((out["cuda"] - out["cpu"]) ** 2))),
             "max_abs_card_vs_cpu": float(np.abs(out["cuda"] - out["cpu"]).max()),
         }
-        if name in ("plain", "shadow_dim_4096"):  # do card and CPU part at the shadow maps?
-            maps = [
-                _stage_geometry(pack_geometry(scene, library, dev), upload_frame_params(host, dev), config)[3].cpu()
-                for dev in (device, torch.device("cpu"))
-            ]
-            results[name]["shadow_map_texels_card_vs_cpu"] = int((maps[0] != maps[1]).sum())
+        if name in ("plain", "shadow_dim_4096"):  # where do card and CPU part on the sun's shadow?
+            chain = shadow_chain_diff(
+                *(sun_shadow_chain(scene, library, host, config, dev) for dev in (device, torch.device("cpu"))),
+                config, (out["cuda"], out["cpu"]),
+            )
+            results[name]["shadow_map_texels_card_vs_cpu"] = chain["map_texels_differ"]
+            results[name]["sun_shadow_chain"] = chain
+            check(
+                not any(chain["cpu_frame_on_card_inputs_differ"].values())
+                and chain["cpu_pcf_on_card_coords"]["tap_pixels_differ"] == 0,
+                f"{name}: the card's shadow frame or taps are not the CPU code's on the card's inputs",
+            )
     for name in ("debug_lines", "debug_lines_no_atmosphere"):
         f = frames[name]  # the overlay's green, encoded: (0, ~1, 0)
         results[name]["line_pixels"] = int(((f[..., 0] == 0) & (f[..., 1] > 0.999) & (f[..., 2] == 0)).sum())
@@ -802,10 +807,174 @@ def phase_feature_frames(device):
         check(results[name]["bitwise_plain"], f"{name}: the card frame differs from the plain card frame")
     check(card_ms["shadow_dim_4096"]["launches_per_frame"]["depth"] >= 1, "shadow_dim_4096: no depth raster launched")
     print(f"feature_frames card ms ({nvidia_smi_line()}) " + json.dumps(card_ms), flush=True)
+    print("feature_frames arithmetic " + json.dumps(arithmetic_probe(device)), flush=True)
     print("feature_frames " + json.dumps(results), flush=True)
     for name, r in results.items():
         check(r["rmse_card_vs_cpu"] <= 1e-3, f"{name}: card vs CPU RMSE {r['rmse_card_vs_cpu']}")
     return results
+
+
+def sun_shadow_chain(scene, library, host, config, dev) -> dict:
+    """The sun's shadow lookup as the frame makes it on ``dev``, each stage
+    copied to the CPU: the visibility buffer, the G-buffer's world
+    position and normal, the sun's light matrix, the shadow coordinates
+    and PCF footprint (``compute_shadow_frame``), the sun's map and its
+    PCF factors (``_sun_pcf``, what the lighting and the sky pass read)."""
+    from syzygy_tpu_torch.kernels.lighting import compute_shadow_frame, convert_pbr
+    from syzygy_tpu_torch.math.geometry import matmul4
+    from syzygy_tpu_torch.renderer.frame import _stage_geometry, _sun_pcf
+    from syzygy_tpu_torch.scene.pack import pack_geometry, upload_frame_params
+
+    state, vis, gbuffer, maps = _stage_geometry(
+        pack_geometry(scene, library, dev), upload_frame_params(host, dev), config
+    )
+    material = convert_pbr(gbuffer)
+    sun = type(state.directional_lights)(*[x[0] for x in state.directional_lights])
+    light = matmul4(sun.projection, sun.view)
+    coord, dx, dy = compute_shadow_frame(light, material.position, material.normal)
+    stages = dict(
+        tri=vis.tri, b0=vis.b0, b1=vis.b1, position=material.position, normal=material.normal, light=light,
+        coord=coord[..., :3], dx=dx, dy=dy, map=maps[0], factor=_sun_pcf(state, gbuffer, maps, config),
+        lit=gbuffer.diffuse[..., 3] >= 1.0,
+    )
+    return {k: v.cpu() for k, v in stages.items()}
+
+
+def _ulps(a, b):
+    return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+
+
+def shadow_chain_diff(card, cpu, config, frames) -> dict:
+    """Where the card's sun shadow lookup leaves the CPU port's, stage by
+    stage over the pixels both shade: the values that differ at each stage
+    and by how many f32 ulps, the PCF factors that differ and the taps
+    behind them (a tap is 1/25 of a factor); two swaps that place the
+    cause: the CPU's shadow frame on the card's position, normal and light
+    matrix, and the CPU's PCF on the card's coordinates (the maps are
+    bitwise alike when ``map_texels_differ`` is 0); and how much of the
+    frames' (card, CPU) difference lies on the pixels whose taps differ."""
+    from syzygy_tpu_torch.kernels.lighting import compute_shadow_frame, sample_shadow_map
+
+    lit = card["lit"] & cpu["lit"]
+    out = {
+        "pixels": int(lit.sum()),
+        "lit_differ": int((card["lit"] != cpu["lit"]).sum()),
+        "map_texels_differ": int((card["map"] != cpu["map"]).sum()),
+        "light_matrix_bitwise": bool(torch.equal(card["light"], cpu["light"])),
+    }
+    for key in ("tri", "b0", "b1"):
+        out[f"{key}_differ"] = int((card[key] != cpu[key]).sum())
+    for key in ("position", "normal", "coord", "dx", "dy"):
+        a, b = card[key][lit], cpu[key][lit]
+        ulps = _ulps(a, b)
+        out[key] = {
+            "values_differ": int((a != b).sum()),
+            "max_ulps": int(ulps.max()) if ulps.numel() else 0,
+            "ulps_1": int((ulps == 1).sum()), "ulps_2": int((ulps == 2).sum()), "ulps_over_2": int((ulps > 2).sum()),
+        }
+    def occluded(factor):  # the taps that found an occluder, an integer count
+        return torch.round((1.0 - factor) * 25.0)
+
+    taps = (occluded(card["factor"]) - occluded(cpu["factor"])).abs() * lit
+    out["factor"] = {
+        "differ": int((card["factor"] != cpu["factor"])[lit].sum()),
+        "differ_same_taps": int(((card["factor"] != cpu["factor"]) & (taps == 0))[lit].sum()),
+        "max_abs_same_taps": float(((card["factor"] - cpu["factor"]).abs() * (taps == 0) * lit).max()),
+        "tap_pixels": int((taps > 0).sum()), "taps": int(taps.sum()), "max_taps": int(taps.max()),
+    }
+    coord, dx, dy = compute_shadow_frame(card["light"], card["position"], card["normal"])
+    out["cpu_frame_on_card_inputs_differ"] = {
+        "coord": int((coord[..., :3] != card["coord"])[lit].sum()),
+        "dx": int((dx != card["dx"])[lit].sum()), "dy": int((dy != card["dy"])[lit].sum()),
+    }
+    pcf = sample_shadow_map(cpu["map"], card["coord"], card["dx"], card["dy"], f16=config.pcf_f16, q8=config.pcf_q8)
+    out["cpu_pcf_on_card_coords"] = {
+        "factors_differ": int((pcf != card["factor"])[lit].sum()),
+        "tap_pixels_differ": int(((occluded(pcf) != occluded(card["factor"])) & lit).sum()),
+    }
+    h, w = frames[0].shape[:2]
+    flipped = (taps[:h, :w] > 0).numpy()
+    err = (frames[0] - frames[1]) ** 2
+    out["frame"] = {
+        "rmse_card_vs_cpu": float(err.mean() ** 0.5),
+        "rmse_without_tap_pixels": float(err[~flipped].mean() ** 0.5),
+        "max_abs_at_tap_pixels": float(err[flipped].max() ** 0.5) if flipped.any() else 0.0,
+        "max_abs_elsewhere": float(err[~flipped].max() ** 0.5),
+    }
+    return out
+
+
+def arithmetic_probe(device, n=1 << 20) -> dict:
+    """Two roundings of the shadow lookup's path, on the card and on the
+    CPU: which order ``torch.sum`` takes over a last axis of 3 (the sums
+    of n seeded triples, signs and magnitudes spread over 6 decades, that
+    differ from each explicit order), and the PCF's ``occluded / 25``
+    for the 26 tap counts against the CPU's quotient."""
+    g = torch.Generator().manual_seed(3)
+    x = (torch.rand((n, 3), generator=g) - 0.5) * 10.0 ** (torch.rand((n, 3), generator=g) * 6.0 - 3.0)
+    orders = {
+        "(a+b)+c": (x[:, 0] + x[:, 1]) + x[:, 2],
+        "a+(b+c)": x[:, 0] + (x[:, 1] + x[:, 2]),
+        "(a+c)+b": (x[:, 0] + x[:, 2]) + x[:, 1],
+    }
+    counts = torch.arange(26, dtype=torch.float32)
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        total = torch.sum(x.to(dev), dim=-1).cpu()
+        out[dev.type] = {
+            "sum3_differs_from": {name: int((total != want).sum()) for name, want in orders.items()},
+            "div25_differs_from_cpu": int(((counts.to(dev) / 25.0).cpu() != counts / 25.0).sum()),
+        }
+    return out
+
+
+BENCH_FRAMES, BENCH_GROUP = 8, 4  # timed frames per scene and frames per group in phase_bench
+
+
+def phase_bench(device):
+    """A main path: ``python -m syzygy_tpu_torch.bench``'s ``measure_scene``
+    on its three scenes (the default scene with the sun animated, the
+    dense field, the chess flagship) at the default 1920x1080
+    RenderConfig, ``BENCH_FRAMES`` timed frames in groups of
+    ``BENCH_GROUP`` after the warm-up, the raster launch counts set to 0
+    before each scene and read after. Every group time must be finite and
+    positive, every timed frame must launch one camera raster and at
+    least one shadow raster, and the last frame must be bitwise a direct
+    ``render_frame_packed`` of its row."""
+    import dataclasses
+
+    from syzygy_tpu_torch import bench
+    from syzygy_tpu_torch.kernels.raster import LAUNCHES
+    from syzygy_tpu_torch.renderer.frame import RenderConfig, render_frame_packed
+    from syzygy_tpu_torch.scene.pack import pack_geometry, scene_uses_metallic
+
+    config = RenderConfig(width=1920, height=1080)
+    scenes = {"default": bench.default_scene_animated, "dense": bench.dense_scene, "chess": bench.chess_scene}
+    report = {"nvidia_smi": nvidia_smi_line(), "scenes": {}, "launches": {"visibility": 0, "depth": 0}}
+    for name, make in scenes.items():
+        scene, library = make()
+        LAUNCHES.reset()
+        timing = bench.measure_scene(scene, library, config, device, frames=BENCH_FRAMES, group=BENCH_GROUP)
+        launches = {"visibility": LAUNCHES.visibility, "depth": LAUNCHES.depth}
+        for kind in launches:
+            report["launches"][kind] += launches[kind]
+        frame = timing.last_frame
+        check(tuple(frame.shape) == (config.height, config.width, 3), f"bench {name}: frame shape {tuple(frame.shape)}")
+        check(bool(torch.isfinite(frame).all()), f"bench {name}: non-finite values")
+        check(len(timing.group_ms) == -(-BENCH_FRAMES // BENCH_GROUP), f"bench {name}: groups {timing.group_ms}")
+        check(all(t > 0.0 and t < float("inf") for t in timing.group_ms), f"bench {name}: group times {timing.group_ms}")
+        per_frame = timing.launches_per_frame
+        check(per_frame["visibility"] == 1.0 and per_frame["depth"] >= 1.0, f"bench {name}: launches {per_frame}")
+        direct_config = dataclasses.replace(config, metallic_reflection=scene_uses_metallic(scene, library))
+        direct = render_frame_packed(pack_geometry(scene, library, device), timing.last_row, timing.spec, direct_config)
+        bitwise = bool(torch.equal(direct, frame))
+        check(bitwise, f"bench {name}: frame {BENCH_FRAMES} differs from a direct render_frame_packed of its row")
+        report["scenes"][name] = {
+            "ms_per_frame": timing.ms, "group_ms": timing.group_ms, "peak_bytes": timing.peak_bytes,
+            "launches_per_frame": per_frame, "launches": launches, "last_frame_bitwise_direct": bitwise,
+        }
+    print("bench " + json.dumps(report), flush=True)
+    return report
 
 
 APP_INPUT_SCRIPT = [{"keys": "w"}, {"keys": "d"}, {"cursor": [12, -5]}]
@@ -1299,6 +1468,7 @@ def main() -> int:
                                dt_seconds=20.0)
         chess, chess_lib = flagship()
         flagship_frames = timed("frames_flagship", phase_frames, "flagship", chess, chess_lib, device, n_frames=3)
+        bench_report = timed("bench", phase_bench, device)
         exact_frames = timed("flagship_1080p", phase_flagship_1080p, device)
         gather_launches = timed("gather_bench", phase_gather_bench)
         timed("golden", phase_golden, device)
@@ -1321,7 +1491,10 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(
                 f["launches"][kind]
-                for f in (default_frames, flagship_frames, exact_frames, app_report, viewer_report, sharded_report)
+                for f in (
+                    default_frames, flagship_frames, bench_report, exact_frames, app_report, viewer_report,
+                    sharded_report,
+                )
             ),
             "max_abs_err": max(by_name[n]["max_abs_err"] for n in compared),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -285,6 +285,28 @@ def step_radius_mu(start: RaymarchStep, step_distance) -> RaymarchStep:
     )
 
 
+def sample_transmittance_raymarch_step(atmo, lut, start: RaymarchStep, step_distance):
+    """``sampleTransmittanceLUT_RayMarchStep`` (``common.glinl:336-361``,
+    ``atmosphere.py:402-419``): the transmittance from ``start`` over
+    ``step_distance`` along its ray, read from the LUT toward the sky for
+    rays going up and toward the ground (``-mu``) for rays going down;
+    1 for steps under 1e-7. The integrals inline an equivalent form with
+    the origin's samples hoisted (:func:`_march_step`), so nothing on the
+    frame calls this one, as in the reference."""
+    end = step_radius_mu(start, step_distance)
+    up = start.mu > 0.0
+    a_r = torch.where(up, start.radius, end.radius)
+    a_mu = torch.where(up, start.mu, -end.mu)
+    b_r = torch.where(up, end.radius, start.radius)
+    b_mu = torch.where(up, end.mu, -start.mu)
+    transmittance = sample_transmittance_rmu(lut, atmo, a_r, a_mu) / torch.clamp(
+        sample_transmittance_rmu(lut, atmo, b_r, b_mu), min=1e-20
+    )
+    transmittance = torch.clamp(transmittance, 0.0, 1.0)
+    tiny = (step_distance < 1e-7)[..., None]
+    return torch.where(tiny, 1.0, transmittance)
+
+
 def _ray_step_setup(atmo, origin, direction, sample_distance):
     """The origin step, the scattering direction and the step length of a
     32-step march."""

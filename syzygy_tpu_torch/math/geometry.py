@@ -325,6 +325,32 @@ def look_at_vk_safe(eye, center) -> torch.Tensor:
     return look_at_vk(eye, center, up)
 
 
+def quat_from_uniforms(u: torch.Tensor) -> torch.Tensor:
+    """The quaternion (w, x, y, z) of :func:`random_quat` from its four
+    uniforms in [0, 1), drawn in the reference's order (r1, theta1, r2,
+    theta2): two polar samples of the unit disk, (x, y) and (u, v),
+    joined as (s v, x, y, s u) with s = sqrt((1 - |xy|^2) / |uv|^2)."""
+
+    def disk(r_draw, theta_draw):
+        r = sqrt_rn(r_draw)
+        theta = theta_draw * 2.0 * np.pi
+        return torch.stack([r * torch.cos(theta), r * torch.sin(theta)])
+
+    xy = disk(u[0], u[1])
+    uv = disk(u[2], u[3])
+    s = sqrt_rn((1.0 - torch.sum(xy * xy)) / torch.clamp(torch.sum(uv * uv), min=1e-12))
+    return torch.stack([s * uv[1], xy[0], xy[1], s * uv[0]])
+
+
+def random_quat(generator: torch.Generator, device) -> torch.Tensor:
+    """``randomQuat`` (``geometryhelpers.cpp:159-169``): a uniformly random
+    rotation quaternion (w, x, y, z) on ``device``. ``generator`` takes the
+    place of the reference's PRNG key; its four uniforms are drawn on the
+    generator's own device, in the reference's order."""
+    u = torch.rand(4, generator=generator, dtype=F32, device=generator.device)
+    return quat_from_uniforms(u.to(device))
+
+
 def perspective_vk(fov_y_degrees, aspect_ratio, near, far) -> torch.Tensor:
     """``projectionVk`` (``geometryhelpers.cpp:83-95``): perspectiveLH_ZO
     with near/far swapped (reverse-Z). Arguments are f32 tensors."""

@@ -51,18 +51,10 @@ EXACT = dict(n_shadow_maps=4, aerial_lut=False, fast_sky_reflection=False)
 
 
 def _scene(name: str, device):
-    from syzygy_tpu_torch.assets.chess import flagship_scene
-    from syzygy_tpu_torch.math.geometry import eulers_from_forward
+    from syzygy_tpu_torch.bench import chess_scene, dense_scene
     from syzygy_tpu_torch.renderer.frame import RenderConfig
     from syzygy_tpu_torch.scene.pack import pack_geometry, scene_uses_metallic
-    from syzygy_tpu_torch.scene.scene import default_scene, dense_sphere_field
-
-    def look(eye, target):
-        eye = torch.tensor(eye, device="cpu")
-        scene.camera.position = tuple(eye.tolist())
-        scene.camera.euler_angles = tuple(
-            eulers_from_forward(torch.tensor(target, device="cpu") - eye).tolist()
-        )
+    from syzygy_tpu_torch.scene.scene import default_scene
 
     if name == "default":
         scene, library = default_scene()
@@ -70,12 +62,9 @@ def _scene(name: str, device):
         scene.sun_animation.time = 0.35  # daylight: sun, moon and spot all light the frame
         scene.tick(0.0)
     elif name == "dense":
-        scene, library = dense_sphere_field()
-        look([18.0, -16.0, -22.0], [0.0, -6.0, 0.0])
-    else:  # the chess flagship, framed as bench.py:264-271 frames it
-        scene, library = flagship_scene()
-        scene.tick(0.0)
-        look([13.0, -8.0, -14.0], [0.0, -1.0, 0.0])
+        scene, library = dense_scene()
+    else:  # the chess flagship, framed as bench.py:260-271 frames it
+        scene, library = chess_scene()
     config = dataclasses.replace(
         RenderConfig(width=WIDTH, height=HEIGHT, **(EXACT if name == "flagship-exact" else {})),
         metallic_reflection=scene_uses_metallic(scene, library),

@@ -385,8 +385,10 @@ def render_frame_packed(geometry: GeometryStatic, buffer, spec: FrameParamSpec, 
     """:func:`render_frame` from a flattened FrameParams buffer
     (:func:`scene.pack.flatten_frame_params`): one host-to-device copy per
     frame, the leaves views of it on the geometry's device. ``buffer`` is
-    the host's f32 numpy array."""
-    buffer = to_tensor(buffer, geometry.positions.device)
+    the host's f32 numpy array, or an f32 tensor (a row of params that
+    were uploaded together)."""
+    device = geometry.positions.device
+    buffer = buffer.to(device) if isinstance(buffer, torch.Tensor) else to_tensor(buffer, device)
     return render_frame(geometry, unflatten_frame_params(spec, buffer), config)
 
 
