@@ -44,7 +44,17 @@ no result line):
    three scenes at 1920x1080, 8 timed frames each after the warm-up, each
    last frame bitwise a direct ``render_frame_packed`` of its row; and the
    port's gather bench (``tools/gather_bench.py``, g1-g7) at its default
-   size;
+   size; the frame without a host sync (``dispatch``): the default (sun
+   animated), dense, flagship and quirk-exact 1080p frames under
+   ``torch.cuda.set_sync_debug_mode("error")``, each replay from its CUDA
+   graph bitwise the eager frame, after the row changes and across a
+   config switch, and returned while its frame still runs; the host ms to
+   enqueue a replay, capture seconds, graph pool bytes, peak memory, and
+   the dense frame at 10 and 2 shadow-map slots (an idle slot's price);
+   the full-iteration rasters (K3/K4) at ``tile_list_capacity=0`` and
+   through a forced overflow flag, bitwise their plain versions; and, as
+   its main path, flagship frames at capacity 0 and dense frames at
+   capacity 1, bitwise the default frames;
 5. parity at the golden configs, card against the CPU port and against
    the JAX package's goldens: the default scene at 256x128
    (``default_scene_256x128.png``) and the flagship at 512x288
@@ -303,8 +313,8 @@ def raster_bound(lists, screen, height, width, depth_only, row0=0) -> dict:
     (``bound_old_ms``)."""
     from syzygy_tpu_torch.kernels.raster import TILE_H, TILE_W
 
-    pairs = int(lists.slots.numel())
-    listed = int(torch.unique(lists.slots).numel()) if pairs else 0
+    pairs = int(lists.offsets[-1])
+    listed = int(torch.unique(lists.slots[:pairs]).numel()) if pairs else 0
     n_bytes = listed * 48 + pairs * 4 + int(lists.offsets.numel()) * 4 + height * width * (4 if depth_only else 16)
     tests = screen_tests(screen, height, width, row0)
     out = {"screen_tests": tests}
@@ -327,7 +337,7 @@ def compare_raster(name, setup_screen, width, height, depth_only, row0=0):
     plain = raster.rasterize_plain(setup, width, height, depth_only=depth_only, origin=origin, lists=lists)
     torch.cuda.synchronize()
 
-    report = {"name": name, "shape": [height, width], "origin": list(origin), "pairs": int(lists.slots.numel())}
+    report = {"name": name, "shape": [height, width], "origin": list(origin), "pairs": int(lists.offsets[-1])}
     fields = ("depth",) if depth_only else ("depth", "b0", "b1")
     err = max(float((getattr(kern, f) - getattr(plain, f)).abs().max()) for f in fields)
     report["max_abs_err"] = err
@@ -355,6 +365,49 @@ def compare_raster(name, setup_screen, width, height, depth_only, row0=0):
     report.update(raster_bound(lists, screen, height, width, depth_only, row0))
     report["library_ms"] = None  # no single PyTorch call computes a raster
     print("compare " + json.dumps(report), flush=True)
+    return report
+
+
+def compare_full(name, setup_screen, width, height, depth_only):
+    """The full-iteration raster (K3/K4) vs ``rasterize_plain(full=True)``
+    on the same inputs, bitwise: launched at ``capacity=0`` and as a
+    listed launch whose device overflow flag is set (lists of capacity 1,
+    the flag forced); timed like :func:`compare_raster`. Its bound: every
+    slot's 12-float row and pixel box read once, the outputs written once,
+    and the operations of the screen tests its slots need."""
+    from syzygy_tpu_torch.kernels import raster
+
+    setup, screen = setup_screen
+    full = raster.rasterize(setup, width, height, depth_only=depth_only, capacity=0)
+    lists = raster.bin_triangles(setup.coeffs, height, width, 1)
+    forced = lists._replace(overflow=torch.ones((), dtype=torch.bool, device=setup.coeffs.device))
+    overflowed = raster.rasterize(setup, width, height, depth_only=depth_only, lists=forced)
+    torch.cuda.synchronize()
+    plain = raster.rasterize_plain(setup, width, height, depth_only=depth_only, full=True)
+    torch.cuda.synchronize()
+    fields = ("depth",) if depth_only else ("depth", "tri", "b0", "b1")
+    err = max(float((getattr(out, f) - getattr(plain, f)).abs().max()) for out in (full, overflowed) for f in fields)
+    report = {"name": name, "shape": [height, width], "slots": int(setup.coeffs.shape[0]), "max_abs_err": err,
+              "lists_overflowed_at_capacity_1": bool(lists.overflow)}
+    check(err == 0.0 and all(torch.equal(getattr(out, f), getattr(plain, f)) for out in (full, overflowed) for f in fields),
+          f"{name}: the full-iteration raster differs from the plain version by {err}")
+
+    def launch():
+        return raster.rasterize(setup, width, height, depth_only=depth_only, capacity=0)
+
+    report["ms"] = time_ms(launch)
+    report["device_ms"] = device_ms(launch)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    raster.rasterize_plain(setup, width, height, depth_only=depth_only, full=True)
+    end.record()
+    torch.cuda.synchronize()
+    report["plain_ms"] = start.elapsed_time(end)
+    n_bytes = setup.coeffs.shape[0] * (48 + 16) + height * width * (4 if depth_only else 16)
+    report["screen_tests"] = screen_tests(screen, height, width)
+    report["bound_ms"], report["bound_by"] = bound(n_bytes, report["screen_tests"] * RASTER_OPS_PER_TEST)
+    report["library_ms"] = None
+    print("compare_full " + json.dumps(report), flush=True)
     return report
 
 
@@ -977,6 +1030,174 @@ def phase_bench(device):
     return report
 
 
+DISPATCH_REPS = 5  # timed replayed frames per scene in phase_dispatch
+IDLE_SLOTS_MAPS = (10, 2)  # n_shadow_maps of the dense frames that price the idle shadow slots
+
+
+def phase_dispatch(device):
+    """The frame without a host sync, replayed from its CUDA graph. For
+    the default (sun animated), dense, flagship and quirk-exact flagship
+    scenes at 1920x1080, under ``torch.cuda.set_sync_debug_mode("error")``:
+    the capturing first ``render_frame_packed`` call, a replay (which must
+    return while its frame still runs: an event recorded after it has not
+    completed), a replay after the row changes, and eager frames
+    (``render_frame_eager``) of the same rows, each replay and first call
+    bitwise its eager frame; on the default scene also a switch to a
+    960x540 config and back. Then, out of that mode, each scene's replayed
+    and eager ms/frame (CUDA events), the host ms to enqueue a replay, the
+    capture's host seconds, the graph's pool bytes and the peak memory;
+    the dense frame at ``n_shadow_maps`` 10 and 2 in turns (10, 2, 2, 10):
+    what each idle shadow slot costs. The full-iteration rasters (K3/K4)
+    against their plain versions (the flagship and dense cameras and the
+    flagship sun), then its main path, with the launch counts set to 0
+    just before and read just after: flagship frames at
+    ``tile_list_capacity=0`` (every raster by full iteration) and dense
+    frames at capacity 1 (lists overflow, the device flag takes full
+    iteration), each bitwise the default frame."""
+    import dataclasses
+
+    from syzygy_tpu_torch import bench
+    from syzygy_tpu_torch.kernels.raster import LAUNCHES
+    from syzygy_tpu_torch.renderer.frame import (
+        RenderConfig,
+        captured_frames,
+        render_frame_eager,
+        render_frame_packed,
+    )
+    from syzygy_tpu_torch.scene.pack import (
+        flatten_frame_params,
+        frame_param_spec,
+        pack_frame_params,
+        pack_geometry,
+        upload_frame_params,
+    )
+
+    report = {"nvidia_smi": nvidia_smi_line(), "scenes": {}}
+    cases = {
+        "default": (bench.default_scene_animated, {}, {}),
+        "dense": (bench.dense_scene, {}, {}),
+        "flagship": (bench.chess_scene, {}, {}),
+        "flagship_exact": (bench.chess_scene, EXACT_CONFIG | GOLDEN_STORAGE, {"atlas_f16": False}),
+    }
+    made = {}
+    for name, (make, overrides, pack_kw) in cases.items():
+        scene, library = make()
+        config = default_scene_config(scene, library, **overrides)
+        geometry = pack_geometry(scene, library, device, **pack_kw)
+        hosts = [pack_frame_params(scene, config.width / config.height)]
+        scene.tick(20.0)  # the default scene's sun moves
+        hosts.append(pack_frame_params(scene, config.width / config.height))
+        spec = frame_param_spec(hosts[0])
+        rows = [flatten_frame_params(h, spec) for h in hosts]
+        params = [upload_frame_params(h, device) for h in hosts]  # pageable uploads: before the debug mode
+        made[name] = (geometry, config, spec, rows, params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            first = render_frame_packed(geometry, rows[0], spec, config)
+            first_call_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            render_frame_packed(geometry, rows[0], spec, config)  # the graph's first launch uploads it
+            first_replay_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()  # the check's own wait, between two frames
+            torch.cuda.set_sync_debug_mode("error")
+            t0 = time.perf_counter()
+            replay = render_frame_packed(geometry, rows[0], spec, config)
+            issue_ms = (time.perf_counter() - t0) * 1e3
+            end = torch.cuda.Event()
+            end.record()
+            in_flight = not end.query()
+            moved = render_frame_packed(geometry, rows[1], spec, config)
+            eager = [render_frame_eager(geometry, p, config) for p in params]
+            switched = {}
+            if name == "default":
+                preview = dataclasses.replace(config, width=960, height=540)
+                switched["preview"] = render_frame_packed(geometry, rows[1], spec, preview)
+                switched["preview_eager"] = render_frame_eager(geometry, params[1], preview)
+                switched["back"] = render_frame_packed(geometry, rows[0], spec, config)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        result = {
+            "first_call_s": first_call_s, "first_replay_issue_ms": first_replay_ms, "replay_issue_ms": issue_ms,
+            "returned_in_flight": in_flight,
+            "first_bitwise_eager": bool(torch.equal(first, eager[0])),
+            "replay_bitwise_eager": bool(torch.equal(replay, eager[0])),
+            "moved_replay_bitwise_eager": bool(torch.equal(moved, eager[1])),
+            "row_change_moved_frame": not bool(torch.equal(eager[0], eager[1])),
+        }
+        if switched:
+            result["config_switch_bitwise_eager"] = bool(
+                torch.equal(switched["preview"], switched["preview_eager"]) and torch.equal(switched["back"], eager[0])
+            )
+            check(result["config_switch_bitwise_eager"], f"dispatch {name}: a replay across a config switch differs")
+        for key in ("first_bitwise_eager", "replay_bitwise_eager", "moved_replay_bitwise_eager"):
+            check(result[key], f"dispatch {name}: {key} is false")
+        check(in_flight, f"dispatch {name}: render_frame_packed returned after its frame ended")
+        if name == "default":
+            check(result["row_change_moved_frame"], "dispatch default: the animated sun did not change the frame")
+        graph = [g for g in captured_frames() if g["config"] == config][-1]
+        result["capture_s"], result["graph_pool_bytes"] = graph["capture_s"], graph["pool_bytes"]
+        result["replay_ms_per_frame"] = time_ms(lambda: render_frame_packed(geometry, rows[0], spec, config), DISPATCH_REPS)
+        result["eager_ms_per_frame"] = time_ms(lambda: render_frame_eager(geometry, params[0], config), 2)
+        result["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated(device))
+        report["scenes"][name] = result
+        print(f"dispatch {name}: " + json.dumps(result), flush=True)
+        del first, replay, moved, eager, switched
+
+    # what an idle shadow slot costs: dense frames at 10 and 2 map slots, in turns
+    geometry, config, spec, rows, _ = made["dense"]
+    idle = {n: [] for n in IDLE_SLOTS_MAPS}
+    for n in IDLE_SLOTS_MAPS + IDLE_SLOTS_MAPS[::-1]:
+        cfg = dataclasses.replace(config, n_shadow_maps=n)
+        idle[n].append(time_ms(lambda: render_frame_packed(geometry, rows[0], spec, cfg), DISPATCH_REPS))
+    many, few = IDLE_SLOTS_MAPS
+    report["dense_idle_shadow_slot_ms"] = (statistics.mean(idle[many]) - statistics.mean(idle[few])) / (many - few)
+    report["dense_ms_by_n_shadow_maps"] = idle
+
+    # K3/K4 against their plain versions
+    chess, chess_lib = flagship()
+    fconfig = default_scene_config(chess, chess_lib)
+    fgeometry = pack_geometry(chess, chess_lib, device)
+    fparams = upload_frame_params(pack_frame_params(chess, fconfig.width / fconfig.height), device)
+    fcamera, fsun = raster_setups(fgeometry, fparams, fconfig)
+    dense, dense_lib = bench.dense_scene()
+    dconfig = default_scene_config(dense, dense_lib, width=960, height=544)
+    dparams = upload_frame_params(pack_frame_params(dense, dconfig.width / dconfig.height), device)
+    dcamera, _ = raster_setups(made["dense"][0], dparams, dconfig)
+    report["full"] = [
+        compare_full("flagship_camera_full", fcamera, fconfig.padded_width, fconfig.padded_height, False),
+        compare_full("dense_camera_full", dcamera, dconfig.padded_width, dconfig.padded_height, False),
+        compare_full("flagship_sun_shadow_full", fsun, fconfig.shadow_dim, fconfig.shadow_dim, True),
+    ]
+
+    # the main path of K3/K4: full-iteration and overflowing frames
+    fspec = made["flagship"][2]
+    frow = made["flagship"][3][0]
+    fgeo, fcfg = made["flagship"][0], made["flagship"][1]
+    dgeo, dcfg, dspec, drows, _ = made["dense"]
+    want_flagship = render_frame_packed(fgeo, frow, fspec, fcfg)
+    want_dense = render_frame_packed(dgeo, drows[0], dspec, dcfg)
+    torch.cuda.synchronize()
+    LAUNCHES.reset()
+    full_frames = [render_frame_packed(fgeo, frow, fspec, dataclasses.replace(fcfg, tile_list_capacity=0)) for _ in range(2)]
+    over_frames = [render_frame_packed(dgeo, drows[0], dspec, dataclasses.replace(dcfg, tile_list_capacity=1)) for _ in range(2)]
+    torch.cuda.synchronize()
+    report["launches"] = LAUNCHES.snapshot()
+    report["capacity_0_bitwise_default"] = all(torch.equal(f, want_flagship) for f in full_frames)
+    report["capacity_1_bitwise_default"] = all(torch.equal(f, want_dense) for f in over_frames)
+    print("dispatch " + json.dumps({k: v for k, v in report.items() if k != "scenes"}), flush=True)
+    check(report["capacity_0_bitwise_default"], "dispatch: the tile_list_capacity=0 frame differs from the default frame")
+    check(report["capacity_1_bitwise_default"], "dispatch: the overflowing (capacity 1) frame differs from the default frame")
+    launches = report["launches"]
+    check(launches["visibility_full"] >= 2 and launches["depth_full"] >= 2 and launches["visibility"] >= 2,
+          f"dispatch: the full-iteration frames launched {launches}")
+    return report
+
+
 APP_INPUT_SCRIPT = [{"keys": "w"}, {"keys": "d"}, {"cursor": [12, -5]}]
 APP_FRAMES = 4
 VIEWER_FRAME_LIMIT = 40  # serve(frames=...): above the script's own /frame.png requests
@@ -1469,6 +1690,7 @@ def main() -> int:
         chess, chess_lib = flagship()
         flagship_frames = timed("frames_flagship", phase_frames, "flagship", chess, chess_lib, device, n_frames=3)
         bench_report = timed("bench", phase_bench, device)
+        dispatch_report = timed("dispatch", phase_dispatch, device)
         exact_frames = timed("flagship_1080p", phase_flagship_1080p, device)
         gather_launches = timed("gather_bench", phase_gather_bench)
         timed("golden", phase_golden, device)
@@ -1490,13 +1712,25 @@ def main() -> int:
         return {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(
-                f["launches"][kind]
+                f["launches"].get(kind, 0)
                 for f in (
                     default_frames, flagship_frames, bench_report, exact_frames, app_report, viewer_report,
-                    sharded_report,
+                    sharded_report, dispatch_report,
                 )
             ),
             "max_abs_err": max(by_name[n]["max_abs_err"] for n in compared),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+        }
+
+    full = {r["name"]: r for r in dispatch_report["full"]}
+
+    def full_entry(name, replaces, kind, timed):
+        r = full[timed]
+        return {
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": dispatch_report["launches"][kind],
+            "max_abs_err": max(f["max_abs_err"] for f in full.values() if ("sun" in f["name"]) == (kind == "depth_full")),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
         }
@@ -1511,6 +1745,8 @@ def main() -> int:
             ("default_sun_shadow", "dense_sun_shadow", "flagship_sun_shadow", "flagship_sun_shadow_4096",
              "flagship_camera_rows_depth"),
         ),
+        full_entry("raster_visibility_full", "syzygy_tpu/kernels/raster.py:808", "visibility_full", "flagship_camera_full"),
+        full_entry("raster_depth_full", "syzygy_tpu/kernels/raster.py:799", "depth_full", "flagship_sun_shadow_full"),
         {
             "name": "lane_gather", "route": "cuda", "source": "syzygy_tpu_torch/csrc/gather.cu",
             "replaces": "tools/gather_bench.py:246", "launches": gather_launches,

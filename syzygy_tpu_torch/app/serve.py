@@ -352,35 +352,38 @@ class _State:
             if not self._dirty and not self._needs_full and self._frame_png is not None and self._pending is None:
                 return self._frame_png
             t0 = time.perf_counter()
-            fut = None
+            cfg = None
             if self._dirty or (self._frame_png is None and self._pending is None):
                 # live input renders the preview (never the first frame, so
                 # the page sizes itself from a full-resolution frame)
                 preview = self._preview_config is not None and self._dirty and self._frame_png is not None
-                fut = self._dispatch(self._preview_config if preview else self.config)
+                cfg = self._preview_config if preview else self.config
                 self._dirty = False
                 self._needs_full = preview
             elif self._needs_full and self._pending is None:
                 # input stopped: refine to the exact full-resolution frame
-                fut = self._dispatch(self.config)
+                cfg = self.config
                 self._needs_full = False
             if self._pending is not None:
-                # fetch the frame dispatched by the previous request
+                # fetch the frame dispatched by the previous request first:
+                # on the card's one stream its copy would otherwise wait
+                # for the new frame too
                 pend, self._pending = self._pending, None
                 try:
                     image = fetch_frame_u8(pend)
                 except RuntimeError:
-                    # a failed frame surfaces here: drop both frames so the
-                    # next request dispatches again
+                    # a failed frame surfaces here: drop it so the next
+                    # request dispatches again
                     self._dirty = True
                     raise
-                self._pending = fut
-            elif fut is not None and self.pipeline and self._frame_png:
-                # leave the new frame in flight and answer with the previous
-                # one (not a frame time: no FPS sample)
-                self._pending = fut
-                return self._frame_png
+                self._pending = self._dispatch(cfg) if cfg is not None else None
             else:
+                fut = self._dispatch(cfg)
+                if self.pipeline and self._frame_png:
+                    # leave the new frame in flight and answer with the
+                    # previous one (not a frame time: no FPS sample)
+                    self._pending = fut
+                    return self._frame_png
                 image = fetch_frame_u8(fut)  # cold first frame, or no pipelining
             self._note_frame_time(t0)
             self._frame_png = _png_bytes(image)

@@ -6,10 +6,14 @@
 //   K3 rasterize(depth_only=False)        -> _raster_kernel        (:808)
 //   K4 rasterize(depth_only=True)         -> kernel_depth          (:799)
 // K1/K3 and K2/K4 compute the same function of the triangle setup; they
-// differ only in how the TPU walks coefficient chunks under its scalar
-// prefetch budget. Here the host builds EXACT per-tile slot lists
-// (kernels/raster.py::bin_triangles), so one kernel, templated on
-// DEPTH_ONLY, covers all four and no list can overflow.
+// differ only in which slots a tile walks. One kernel, templated on
+// DEPTH_ONLY, covers all four: a listed launch (K1/K2) walks each tile's
+// list (kernels/raster.py::bin_triangles, built on the device with
+// static sizes); a full-iteration launch (K3/K4: tile_list_capacity=0, or
+// a listed launch whose lists overflowed, as the device flag `overflow`
+// says) walks every slot and keeps those whose tile range (coefficient
+// columns 10/11) holds the tile: the listing rule itself, so both walk
+// the same (tile, slot) pairs and merge the same keys, bitwise.
 //
 // Semantics (the reference's serial _chunk_loop, raster.py:542-562): per
 // pixel of a 64x128 tile, over the tile's listed slots,
@@ -205,9 +209,11 @@ template <bool DEPTH_ONLY>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
 raster_kernel(const float* __restrict__ coeffs,
               const int4* __restrict__ boxes,
+              int n_slots,
               const int* __restrict__ slots,
               const int* __restrict__ offsets,
-              int tiles_x, int width, int oy, int ox,
+              const unsigned char* __restrict__ overflow,
+              int full, int tiles_x, int width, int oy, int ox,
               float* __restrict__ depth_out,
               int* __restrict__ tri_out,
               float* __restrict__ b0_out,
@@ -224,8 +230,10 @@ raster_kernel(const float* __restrict__ coeffs,
   const int ty = tile / tiles_x;
   const int tx = tile - ty * tiles_x;
   const int tile_x0 = tx * TILE_W, tile_y0 = ty * TILE_H;
-  const int begin = offsets[tile];
-  const int len = offsets[tile + 1] - begin;  // the same in every rank of the cluster
+  // full iteration: every slot, filtered below by its tile range
+  const bool whole = full || (overflow != nullptr && *overflow != 0);
+  const int begin = whole ? 0 : offsets[tile];
+  const int len = whole ? n_slots : offsets[tile + 1] - begin;  // the same in every rank of the cluster
   // A list of one batch at most is split by rows: each rank rasters all of
   // it over its own band of rows and needs no other rank's keys. A longer
   // list is split into CLUSTER parts, each over the whole tile, merged
@@ -245,15 +253,24 @@ raster_kernel(const float* __restrict__ coeffs,
       __syncthreads();  // keys zeroed, or the previous batch consumed
       int area = 0;
       if (threadIdx.x < n) {
-        const int s = slots[base + threadIdx.x];
-        const int4 box = boxes[s];  // x0, x1, y0, y1, target-local, inclusive
-        const int bx0 = max(box.x, tile_x0), bx1 = min(box.y, tile_x0 + TILE_W - 1);
-        const int by0 = max(box.z, tile_y0 + row_lo), by1 = min(box.w, tile_y0 + row_hi - 1);
-        const int w = bx1 - bx0 + 1, h = by1 - by0 + 1;
-        area = (w > 0 && h > 0) ? w * h : 0;
+        const int s = whole ? base + threadIdx.x : slots[base + threadIdx.x];
         const float* c = coeffs + (int64_t)s * COEFF_WIDTH;
+        bool listed = true;
+        if (whole) {  // the listing rule: the slot's tile range holds this tile
+          const int pkx = (int)__ldg(c + 10), pky = (int)__ldg(c + 11);  // t0 * 4096 + t1 + 1, exact
+          listed = (pkx >> 12) <= tx && tx < (pkx & 4095) && (pky >> 12) <= ty && ty < (pky & 4095);
+        }
+        int bx0 = 0, by0 = 0, w = 0, h = 0;
+        if (listed) {
+          const int4 box = boxes[s];  // x0, x1, y0, y1, target-local, inclusive
+          bx0 = max(box.x, tile_x0);
+          by0 = max(box.z, tile_y0 + row_lo);
+          w = min(box.y, tile_x0 + TILE_W - 1) - bx0 + 1;
+          h = min(box.w, tile_y0 + row_hi - 1) - by0 + 1;
 #pragma unroll
-        for (int k = 0; k < 9; ++k) b.coef[k][threadIdx.x] = __ldg(c + k);
+          for (int k = 0; k < 9; ++k) b.coef[k][threadIdx.x] = __ldg(c + k);
+        }
+        area = (w > 0 && h > 0) ? w * h : 0;
         b.slot[threadIdx.x] = s;
         b.x0[threadIdx.x] = bx0;
         b.y0[threadIdx.x] = by0;
@@ -421,14 +438,16 @@ raster_kernel(const float* __restrict__ coeffs,
 
 template <bool DEPTH_ONLY>
 int launch(int device, dim3 grid, cudaStream_t stream, const float* coeffs, const int4* boxes,
-           const int* slots, const int* offsets, int tiles_x, int width, int oy, int ox,
-           float* depth, int* tri, float* b0, float* b1) {
+           int n_slots, const int* slots, const int* offsets, const unsigned char* overflow,
+           int full, int tiles_x, int width, int oy, int ox, float* depth, int* tri, float* b0,
+           float* b1) {
   static szg::SharedMemoryOptIn opt_in;
   const int bytes = (int)smem_bytes<DEPTH_ONLY>();
   const cudaError_t err = opt_in.ensure(raster_kernel<DEPTH_ONLY>, bytes, device);
   if (err != cudaSuccess) return (int)err;
   raster_kernel<DEPTH_ONLY><<<grid, THREADS, bytes, stream>>>(
-      coeffs, boxes, slots, offsets, tiles_x, width, oy, ox, depth, tri, b0, b1);
+      coeffs, boxes, n_slots, slots, offsets, overflow, full, tiles_x, width, oy, ox, depth, tri,
+      b0, b1);
   return (int)cudaGetLastError();
 }
 
@@ -436,13 +455,20 @@ int launch(int device, dim3 grid, cudaStream_t stream, const float* coeffs, cons
 
 // Plain C entry point (bound with ctypes). Launches on `stream` of
 // `device`, allocates nothing, and returns the launch's CUDA error (0 when
-// it was accepted). `boxes` is the setup's (T2pad, 4) int32 pixel_box.
-extern "C" int szg_raster(const float* coeffs, const int* boxes, const int* slots,
-                          const int* offsets, int tiles_y, int tiles_x, int oy, int ox,
-                          int depth_only, float* depth, int* tri, float* b0, float* b1,
-                          int device, void* stream) {
+// it was accepted). `boxes` is the setup's (n_slots, 4) int32 pixel_box.
+// A listed launch (`full` 0) takes `slots` and `offsets` (the tile lists)
+// and `overflow` (one byte on the device, or null: lists that cannot
+// overflow); the kernel iterates fully where it reads a nonzero byte. A
+// full-iteration launch (`full` 1) takes no lists.
+extern "C" int szg_raster(const float* coeffs, const int* boxes, int n_slots, const int* slots,
+                          const int* offsets, const unsigned char* overflow, int full,
+                          int tiles_y, int tiles_x, int oy, int ox, int depth_only, float* depth,
+                          int* tri, float* b0, float* b1, int device, void* stream) {
   const int tiles = tiles_y * tiles_x;
   if (tiles <= 0) return 0;
+  if (n_slots < 0 || tiles_x > 4095 || tiles_y > 4095 || (!full && (slots == nullptr || offsets == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (!szg::valid_device(device)) return (int)cudaErrorInvalidDevice;
   szg::DeviceScope scope(device);
   const dim3 grid(tiles * CLUSTER);
@@ -450,9 +476,9 @@ extern "C" int szg_raster(const float* coeffs, const int* boxes, const int* slot
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int4* box4 = reinterpret_cast<const int4*>(boxes);
   if (depth_only) {
-    return launch<true>(device, grid, s, coeffs, box4, slots, offsets, tiles_x, width, oy, ox,
-                        depth, tri, b0, b1);
+    return launch<true>(device, grid, s, coeffs, box4, n_slots, slots, offsets, overflow, full,
+                        tiles_x, width, oy, ox, depth, tri, b0, b1);
   }
-  return launch<false>(device, grid, s, coeffs, box4, slots, offsets, tiles_x, width, oy, ox,
-                       depth, tri, b0, b1);
+  return launch<false>(device, grid, s, coeffs, box4, n_slots, slots, offsets, overflow, full,
+                       tiles_x, width, oy, ox, depth, tri, b0, b1);
 }

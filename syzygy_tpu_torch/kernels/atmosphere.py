@@ -107,6 +107,13 @@ def pack_lut_q8(lut: torch.Tensor) -> LUTQ8:
     return LUTQ8(q.to(torch.uint8), scale[..., 0])
 
 
+def _texel(table, iy, ix):
+    """``table[iy, ix]`` for index tensors of any shape: 0-dim indices are
+    taken as 1-element tensors, so no index is read back to the host."""
+    iy, ix = torch.broadcast_tensors(iy, ix)
+    return table[iy.reshape(-1), ix.reshape(-1)].reshape(*iy.shape, *table.shape[2:])
+
+
 def sample_lut_bilinear(lut, u, v):
     """Bilinear clamp-to-edge sample (GLSL ``texture()``) of an (H, W, C)
     LUT (any float dtype; filtered in f32) or a :class:`LUTQ8`."""
@@ -121,15 +128,15 @@ def sample_lut_bilinear(lut, u, v):
     fx = (x - x0)[..., None]
     fy = (y - y0)[..., None]
     if isinstance(lut, LUTQ8):
-        scale = (lut.scale[y0, x0] * (1.0 / 255.0))[..., None]
-        q = lut.q[y0, x0].to(F32) * scale  # (..., 12)
+        scale = (_texel(lut.scale, y0, x0) * (1.0 / 255.0))[..., None]
+        q = _texel(lut.q, y0, x0).to(F32) * scale  # (..., 12)
         top = q[..., 0:3] * (1 - fx) + q[..., 3:6] * fx
         bot = q[..., 6:9] * (1 - fx) + q[..., 9:12] * fx
         return top * (1 - fy) + bot * fy
     x1 = torch.clamp(x0 + 1, max=w - 1)
     y1 = torch.clamp(y0 + 1, max=h - 1)
-    top = lut[y0, x0].to(F32) * (1 - fx) + lut[y0, x1].to(F32) * fx
-    bot = lut[y1, x0].to(F32) * (1 - fx) + lut[y1, x1].to(F32) * fx
+    top = _texel(lut, y0, x0).to(F32) * (1 - fx) + _texel(lut, y0, x1).to(F32) * fx
+    bot = _texel(lut, y1, x0).to(F32) * (1 - fx) + _texel(lut, y1, x1).to(F32) * fx
     return top * (1 - fy) + bot * fy
 
 

@@ -33,9 +33,9 @@ SOURCES = {
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # source name -> {entry point: (argtypes, restype)}
 ENTRY_POINTS = {
-    # coeffs, boxes, slots, offsets | tiles_y, tiles_x, oy, ox, depth_only |
-    # depth, tri, b0, b1 | device, stream
-    "raster": {"szg_raster": ([_P] * 4 + [_I] * 5 + [_P] * 4 + [_I, _P], _I)},
+    # coeffs, boxes | n_slots | slots, offsets, overflow | full, tiles_y,
+    # tiles_x, oy, ox, depth_only | depth, tri, b0, b1 | device, stream
+    "raster": {"szg_raster": ([_P, _P, _I] + [_P] * 3 + [_I] * 6 + [_P] * 4 + [_I, _P], _I)},
     # table, table_n, idx, out, n, device, stream
     "gather": {"szg_lane_gather": ([_P, _LL, _P, _P, _LL, _I, _P], _I)},
 }

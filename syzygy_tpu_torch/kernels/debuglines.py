@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from syzygy_tpu_torch.device import constant
+
 F32 = torch.float32
 LINE_COLOR = (0.0, 1.0, 0.0)  # debugline.vert:35
 
@@ -40,7 +42,8 @@ def box_segments(center, half_extent) -> np.ndarray:
 def line_coverage(depth_buffer, segments, segments_valid, proj_view, draw_extent, line_width: float = 1.0):
     """(H, W) bool: pixels some valid segment covers and wins the
     ``z >= depth`` test at (``debuglines.py:54-94``). Each segment costs a
-    few tensor ops over the grid, so the loop is over segments."""
+    few tensor ops over the grid, so the loop is over the segment slots,
+    each masked by its visibility on the device."""
     h, w = depth_buffer.shape
     dev = depth_buffer.device
     draw_w, draw_h = draw_extent
@@ -57,14 +60,14 @@ def line_coverage(depth_buffer, segments, segments_valid, proj_view, draw_extent
     radius_sq = (0.5 * line_width + 0.5) ** 2
 
     overlay = torch.zeros((h, w), dtype=torch.bool, device=dev)
-    for s in torch.nonzero(visible).flatten().tolist():  # an invisible segment covers nothing
+    for s in range(seg.shape[0]):  # every slot, masked: an invisible segment covers nothing
         ax, ay, az = sx[s, 0], sy[s, 0], sz[s, 0]
         dx, dy = sx[s, 1] - ax, sy[s, 1] - ay
         len_sq = torch.clamp(dx * dx + dy * dy, min=1e-8)
         t = torch.clamp(((px - ax) * dx + (py - ay) * dy) / len_sq, 0.0, 1.0)
         dist_sq = (px - (ax + t * dx)) ** 2 + (py - (ay + t * dy)) ** 2
         z = az + t * (sz[s, 1] - az)
-        overlay |= (dist_sq <= radius_sq) & (z >= depth_buffer) & (z <= 1.0)  # reverse-Z GREATER_OR_EQUAL
+        overlay |= visible[s] & (dist_sq <= radius_sq) & (z >= depth_buffer) & (z <= 1.0)  # reverse-Z GREATER_OR_EQUAL
     return overlay
 
 
@@ -73,5 +76,5 @@ def draw_lines(color_image, depth_buffer, segments, segments_valid, proj_view, d
     """Composite depth-tested green lines over the (H, W, 3) color image
     (``debuglines.py:44-98``)."""
     overlay = line_coverage(depth_buffer, segments, segments_valid, proj_view, draw_extent, line_width)
-    green = torch.tensor(LINE_COLOR, dtype=color_image.dtype, device=color_image.device)
+    green = constant(LINE_COLOR, color_image.dtype, color_image.device)
     return torch.where(overlay[..., None], green, color_image)

@@ -9,13 +9,11 @@ rounded to float16 before the compare, as the reference's f16 segment
 tables are, up to 2048 texels (larger maps read f32 there). ``q8=True``
 decodes the reference's u8 block-quantized segments.
 
-Light loops run only over lights that can contribute. Which lights those
-are is decided on the host from one small device->host copy per frame
-(:func:`light_activity`), shared with the shadow pass. The copy reads
-comparisons of the light parameters, never a value on the way to the
-image, so this one form is differentiable: autograd reaches the light
-colors and directions through the compacted loops (the reference needs its
-``unroll=True`` form for that).
+Every light slot is evaluated, and each contributes under a mask computed
+on the device (:func:`light_activity`, shared with the shadow pass): the
+frame reads nothing back to the host, and the one form is differentiable
+(autograd reaches the light colors and directions through the masked
+sums; the reference needs its ``unroll=True`` form for that).
 """
 
 from __future__ import annotations
@@ -24,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from syzygy_tpu_torch.device import constant
 from syzygy_tpu_torch.kernels.resolve import GBuffer
 from syzygy_tpu_torch.math.geometry import matmul4, matvec, sqrt_rn, vec_norm, world_up
 from syzygy_tpu_torch.scene.camera import CameraPacked
@@ -103,7 +102,7 @@ def specular_brdf(material: PBRTexel, light_dir, view_dir):
 
 def compute_shadow_frame(light_proj_view, position, normal):
     """``computeShadowFrame`` (``shadowmap.glinl:17-30``)."""
-    m = matmul4(torch.tensor(_TO_TEX_COORD, dtype=F32, device=position.device), light_proj_view)
+    m = matmul4(constant(_TO_TEX_COORD, F32, position.device), light_proj_view)
     ones = torch.ones_like(position[..., :1])
     coord = matvec(m, torch.cat([position, ones], dim=-1))
     w = coord[..., 3:4]
@@ -194,7 +193,7 @@ def _pcf_q8(shadow_map, coord, dx, dy):
     lo = torch.amin(windows, dim=-1, keepdim=True)
     hi = torch.amax(windows, dim=-1, keepdim=True)
     lo16 = lo.to(torch.float16).to(F32)
-    step16 = ((hi - lo) * torch.tensor(1.0 / 255.0, dtype=F32, device=dev)).to(torch.float16).to(F32)
+    step16 = ((hi - lo) * torch.full((), 1.0 / 255.0, dtype=F32, device=dev)).to(torch.float16).to(F32)
     step = torch.clamp(step16, min=1e-30)
     codes = torch.clamp(torch.round((windows - lo16) / step), 0.0, 255.0).reshape(-1)
     lo16, step16 = lo16.reshape(-1), step16.reshape(-1)
@@ -222,12 +221,13 @@ def _light_contribution(material, view_dir, light_dir, spectral):
 
 
 class LightActivity(NamedTuple):
-    """Host-side light selection for one frame (from one D2H copy)."""
+    """Which lights contribute this frame: per-slot masks on the lights'
+    device, so that nothing is read back to the host."""
 
-    shadowed_dirs: list  # directional slots lit with their shadow map
-    unshadowed_dirs: list  # directional slots lit without PCF (dim gate)
-    spots: list  # active spot slots
-    shadow_maps: list  # map slots the shadow pass rasters
+    shadowed_dirs: torch.Tensor  # (D,) bool: directional slots lit with their shadow map
+    unshadowed_dirs: torch.Tensor  # (D,) bool: directional slots lit without PCF (dim gate)
+    spots: torch.Tensor  # (S,) bool: active spot slots
+    shadow_maps: torch.Tensor  # (min(n_shadow_maps, D + S),) bool: map slots the shadow pass rasters
 
 
 def light_activity(
@@ -243,8 +243,10 @@ def light_activity(
     contributes unshadowed (``lighting.py:605-619``, the relative gate).
     The shadow pass rasters map 0 (the sun; the sky pass samples it), the
     directional maps the gate keeps, and every spot map up to
-    ``n_shadow_maps`` of ``2 + spot_count`` (``frame.py:544-574``)."""
+    ``n_shadow_maps`` of ``2 + spot_count`` (``frame.py:544-574``). The
+    counts are device scalars; every mask is computed on their device."""
     n_dir = directional.strength.shape[0]
+    n_spot = spots.strength.shape[0]
     dev = directional.strength.device
     dir_int = torch.amax(torch.abs(directional.color[:, :3]), dim=-1) * torch.abs(directional.strength)
     if shadowless_eps > 0.0:
@@ -256,34 +258,19 @@ def light_activity(
         needs_pcf = dir_int != 0.0
     emits = (torch.amax(torch.abs(directional.color[:, :3]), dim=-1) * directional.strength) != 0.0
     s_emits = (torch.amax(torch.abs(spots.color[:, :3]), dim=-1) * spots.strength) != 0.0
-    host = torch.cat(
-        [
-            needs_pcf.to(torch.int32),
-            emits.to(torch.int32),
-            s_emits.to(torch.int32),
-            torch.stack([directional_count, directional_skip, spot_count]).to(torch.int32),
-        ]
-    ).tolist()
-    n_spot = s_emits.shape[0]
-    needs = host[:n_dir]
-    dir_emits = host[n_dir : 2 * n_dir]
-    spot_emits = host[2 * n_dir : 2 * n_dir + n_spot]
-    count, skip, n_spots_live = host[2 * n_dir + n_spot :]
-    live = [i for i in range(n_dir) if skip <= i < count and dir_emits[i]]
+    ids = torch.arange(n_dir, device=dev)
+    live = (ids >= directional_skip) & (ids < directional_count) & emits
     if shadowless_eps > 0.0:
-        shadowed = [i for i in live if needs[i]]
-        unshadowed = [i for i in live if not needs[i]]
+        shadowed, unshadowed = live & needs_pcf, live & ~needs_pcf
     else:
-        shadowed, unshadowed = live, []
-    maps = [
-        i for i in range(min(n_shadow_maps, n_dir + n_spots_live))
-        if i >= n_dir or i == 0 or needs[i]
-    ]
+        shadowed, unshadowed = live, torch.zeros_like(live)
+    slots = torch.arange(min(n_shadow_maps, n_dir + n_spot), device=dev)
+    gated = torch.cat([needs_pcf | (ids == 0), torch.ones(n_spot, dtype=torch.bool, device=dev)])
     return LightActivity(
         shadowed_dirs=shadowed,
         unshadowed_dirs=unshadowed,
-        spots=[j for j in range(n_spot) if j < n_spots_live and spot_emits[j]],
-        shadow_maps=maps,
+        spots=(torch.arange(n_spot, device=dev) < spot_count) & s_emits,
+        shadow_maps=(slots < n_dir + spot_count) & gated[: slots.shape[0]],
     )
 
 
@@ -295,23 +282,38 @@ def deferred_lighting(
     gbuffer: GBuffer,
     camera: CameraPacked,
     directional: DirectionalLight,
+    directional_count,  # i32 device scalars, as the reference takes them
+    directional_skip,
     spots: SpotLight,
+    spot_count,
     shadow_maps,  # (D + S, dim, dim) f32
-    activity: LightActivity,
-    pcf_f16: bool = False,
+    unroll: bool = False,
     pcf_bitmask: bool = False,
+    pcf_f16: bool = False,
     pcf_q8: bool = False,
     pcf_window2d: bool = False,
+    shadowless_eps: float = 0.0,
     sun_shadow=None,
 ):
     """``deferred/lights.comp`` main loop -> (H, W, 3) linear color
-    (``lighting.py:528-791``). Background texels (diffuse alpha < 1) stay
-    black. Shadowed directionals accumulate first, then the dim ones
-    without PCF, then spots — the reference's order. The ``pcf_*`` flags
-    go to :func:`sample_shadow_map`. ``sun_shadow`` (H, W), when given,
-    is directional light 0's PCF, evaluated once by the caller and shared
+    (``lighting.py:528-791``), with the reference's signature. Background
+    texels (diffuse alpha < 1) stay black. Shadowed directionals
+    accumulate first, then the dim ones without PCF (``shadowless_eps``,
+    :func:`light_activity`'s gate), then spots — the reference's order.
+    Every slot is evaluated and accumulated under its device mask
+    (``acc = where(active, acc + c, acc)``), so an inactive light leaves
+    the sum bitwise as it was and nothing is read back to the host; this
+    one form is differentiable (``unroll``, the reference's differentiable
+    form, is accepted and changes nothing). The ``pcf_*`` flags go to
+    :func:`sample_shadow_map`. ``sun_shadow`` (H, W), when given, is
+    directional light 0's PCF, evaluated once by the caller and shared
     with the sky pass (``RenderConfig.share_sun_pcf``); it takes the place
     of that light's own PCF in the same accumulation order."""
+    del unroll  # one form
+    activity = light_activity(
+        directional, directional_count, directional_skip, spots, spot_count, shadowless_eps,
+        shadow_maps.shape[0],
+    )
     material = convert_pbr(gbuffer)
     lit_mask = gbuffer.diffuse[..., 3:4] >= 1.0
     view_dir = _normalize(camera.position[:3] - material.position)
@@ -325,16 +327,18 @@ def deferred_lighting(
         spectral = (light.color[:3] * light.strength) * shadow[..., None]
         return _light_contribution(material, view_dir, light_dir, spectral)
 
-    for i in activity.shadowed_dirs:
+    for i in range(n_dir):
         if i == 0 and sun_shadow is not None:
             shadow = sun_shadow
         else:
             shadow = directional_pcf(_take(directional, i), material, shadow_maps[i], **pcf)
-        total = total + dir_contribution(i, shadow)
-    for i in activity.unshadowed_dirs:
-        total = total + dir_contribution(i, torch.ones_like(material.position[..., 0]))
+        total = torch.where(activity.shadowed_dirs[i], total + dir_contribution(i, shadow), total)
+    if shadowless_eps > 0.0:
+        ones = torch.ones_like(material.position[..., 0])
+        for i in range(n_dir):
+            total = torch.where(activity.unshadowed_dirs[i], total + dir_contribution(i, ones), total)
 
-    for j in activity.spots:
+    for j in range(spots.strength.shape[0]):
         spot = _take(spots, j)
         coord, dx, dy = compute_shadow_frame(matmul4(spot.projection, spot.view), material.position, material.normal)
         shadow = sample_shadow_map(shadow_maps[n_dir + j], coord, dx, dy, **pcf)
@@ -351,5 +355,6 @@ def deferred_lighting(
             (spot.color[:3] * spot.strength) / torch.clamp(falloff, min=1e-8)
             * edge_soften * shadow[..., None]
         )
-        total = total + _light_contribution(material, view_dir, light_dir, spectral)
+        contribution = _light_contribution(material, view_dir, light_dir, spectral)
+        total = torch.where(activity.spots[j], total + contribution, total)
     return torch.where(lit_mask, total, 0.0)

@@ -7,14 +7,18 @@ Port of ``syzygy_tpu/kernels/raster.py``. Three parts:
    screen-space affine barycentric/depth forms and per-slot tile ranges.
    Same arithmetic as the reference's jitted setup (including its fused
    multiply-adds), so the coefficient rows agree bitwise.
-2. :func:`bin_triangles` (torch): EXACT per-tile slot lists, ascending
-   slot order within each tile, built from the tile ranges in coefficient
-   columns 10/11 by a count / exclusive-scan / sort. Lists have no
-   capacity, so no triangle is ever dropped and the TPU's overflow
-   fallback raster has no counterpart here.
-3. :func:`rasterize`: the visibility (or depth-only) raster. On a CUDA
-   tensor it launches the hand-written kernel ``csrc/raster.cu``; on a CPU
-   tensor it runs :func:`rasterize_plain`, the same function in torch.
+2. :func:`bin_triangles` (torch, on the device, static sizes): per-tile
+   slot lists, ascending slot order within each tile, built from the tile
+   ranges in coefficient columns 10/11 by a count / scan / sort into a
+   pair budget sized from ``tile_list_capacity``. Lists that would drop a
+   slot set a device flag, and the raster then takes full iteration (the
+   reference's ``lax.cond`` to its iterate-all-chunks kernel,
+   ``frame.py:64-141``); nothing is read back to the host.
+3. :func:`rasterize`: the visibility (or depth-only) raster over the
+   lists (K1/K2), or over every slot (full iteration, K3/K4: at
+   ``capacity=0`` or when the lists overflowed). On a CUDA tensor it
+   launches the hand-written kernel ``csrc/raster.cu``; on a CPU tensor
+   it runs :func:`rasterize_plain`, the same function in torch.
 
 Conventions: screen x right / y down, pixel centers at +0.5, reverse-Z
 (1 near, 0 far), a depth test of ``z >= depth`` in ascending slot order (the
@@ -27,12 +31,14 @@ from typing import NamedTuple
 
 import torch
 
+from syzygy_tpu_torch.device import constant
 from syzygy_tpu_torch.kernels import build
 from syzygy_tpu_torch.math.geometry import fma32
 
 TILE_H = 64
 TILE_W = 128
 CHUNK = 64  # slot-count padding multiple (keeps slot ids equal to the reference's)
+TILE_LIST_CAPACITY = 448  # RenderConfig.tile_list_capacity's default, in CHUNKs of slots
 W_CLIP_EPS = 1e-3  # near-plane clip guard in view-z units (w_clip = z_view)
 _TILE_PACK = 4096.0
 _COEFF_WIDTH = 12
@@ -66,13 +72,17 @@ class VisibilityBuffer(NamedTuple):
 
 
 class TileLists(NamedTuple):
-    """Exact per-tile slot lists: tile i owns ``slots[offsets[i]:offsets[i+1]]``
-    in ascending slot order."""
+    """Per-tile slot lists: tile i owns ``slots[offsets[i]:offsets[i+1]]``
+    in ascending slot order; entries past ``offsets[-1]`` are padding.
+    ``overflow`` (a () bool tensor on the lists' device) is set when the
+    lists dropped a slot: a raster over them must then take full
+    iteration."""
 
-    slots: torch.Tensor  # (P,) i32
+    slots: torch.Tensor  # (P,) i32, P static
     offsets: torch.Tensor  # (tiles + 1,) i32
     tiles_y: int
     tiles_x: int
+    overflow: torch.Tensor
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +121,7 @@ def _setup_slots(tri_corner_clip, tri_valid, width, height, cull_keep_sign,
     rot = torch.where(n_in == 1, rot_one, torch.where(n_in == 2, rot_two, 0))
 
     v = _rotate_corners(tri_corner_clip, rot)
-    eye_bary = torch.tensor([[1.0, 0.0], [0.0, 1.0], [0.0, 0.0]], dtype=F32, device=dev)
+    eye_bary = constant([[1.0, 0.0], [0.0, 1.0], [0.0, 0.0]], F32, dev)
     vb = _rotate_corners(eye_bary[None].expand(rot.shape[0], 3, 2), rot)
 
     v0, v1, v2 = v[:, 0], v[:, 1], v[:, 2]
@@ -160,8 +170,8 @@ def _setup_slots(tri_corner_clip, tri_valid, width, height, cull_keep_sign,
     # contracts each single-use product (corners 1 and 2) into its
     # subtraction from corner 0; exact when the viewport side is a power
     # of two, one rounding fewer otherwise.
-    w_t = torch.tensor(float(width), dtype=F32, device=dev)
-    h_t = torch.tensor(float(height), dtype=F32, device=dev)
+    w_t = torch.full((), float(width), dtype=F32, device=dev)
+    h_t = torch.full((), float(height), dtype=F32, device=dev)
     dx10, dx20 = _fma(ux[:, 1], w_t, -x0), _fma(ux[:, 2], w_t, -x0)
     dy10, dy20 = _fma(uy[:, 1], h_t, -y0), _fma(uy[:, 2], h_t, -y0)
     area2 = _fma(dx10, dy20, -(dy10 * dx20))
@@ -191,7 +201,7 @@ def _setup_slots(tri_corner_clip, tri_valid, width, height, cull_keep_sign,
         )
         z2c = z2c + (depth_bias_constant * 2.0**-23 + depth_bias_slope * slope_m)
 
-    inf = torch.tensor(float("inf"), dtype=F32, device=dev)
+    inf = torch.full((), float("inf"), dtype=F32, device=dev)
     cols = torch.stack(
         [
             alpha0, beta0, gamma0, alpha1, beta1, gamma1, z2c, dz0, dz1,
@@ -300,7 +310,7 @@ def pixel_boxes(coeffs: torch.Tensor, grid_width: int, grid_height: int, grid_or
     by0 = torch.where(conditioned, torch.ceil(y_lo - 0.5 - oy).clamp(0, h), 0.0)
     by1 = torch.where(conditioned, torch.floor(y_hi - 0.5 - oy).clamp(-1, h - 1), h - 1)
     box = torch.stack([bx0, bx1, by0, by1], dim=1).to(torch.int32)
-    empty = torch.tensor([1, 0, 1, 0], dtype=torch.int32, device=dev)
+    empty = constant([1, 0, 1, 0], torch.int32, dev)
     return torch.where((coeffs[:, 9] > 0)[:, None], box, empty).contiguous()
 
 
@@ -364,51 +374,71 @@ def rejoin_slots(gathered: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# exact binning
+# binning with static sizes
 # ---------------------------------------------------------------------------
 
 
-def bin_triangles(coeffs: torch.Tensor, height: int, width: int) -> TileLists:
-    """Exact per-tile slot lists from coefficient columns 10/11.
+def pair_budget(n_slots: int, n_tiles: int, capacity: int) -> int:
+    """The (tile, slot) pairs :func:`bin_triangles` has room for: one tile
+    per slot plus ``CHUNK`` whole-target slots, and never more than
+    ``n_tiles`` lists of ``capacity * CHUNK`` slots each (the reference's
+    per-tile capacity is ``capacity`` chunks of ``CHUNK`` slots)."""
+    return max(1, min(n_tiles * min(capacity * CHUNK, n_slots), n_slots + CHUNK * n_tiles))
 
-    Count the tiles each slot touches, expand to (tile, slot) pairs with
-    an exclusive scan, sort by tile (slot ascending within a tile) and
-    take per-tile offsets. One host sync (the pair count sizes the
-    expansion)."""
-    if height % TILE_H or width % TILE_W:
-        raise ValueError(f"raster target {width}x{height} is not a tile multiple")
-    dev = coeffs.device
-    tiles_y, tiles_x = height // TILE_H, width // TILE_W
+
+def tile_ranges(coeffs: torch.Tensor):
+    """Each slot's tile range from coefficient columns 10/11, int64:
+    (tx0, tx1 + 1, ty0, ty1 + 1); empty for invalid slots."""
     pkx = coeffs[:, 10].to(torch.int64)
     pky = coeffs[:, 11].to(torch.int64)
-    tx0, tx1p = pkx // 4096, pkx % 4096
-    ty0, ty1p = pky // 4096, pky % 4096
+    return pkx // 4096, pkx % 4096, pky // 4096, pky % 4096
+
+
+def bin_triangles(coeffs: torch.Tensor, height: int, width: int, capacity: int = TILE_LIST_CAPACITY) -> TileLists:
+    """Per-tile slot lists from coefficient columns 10/11, on the
+    coefficients' device, every size static: no host sync.
+
+    Count the tiles each slot touches, scan, map each of
+    :func:`pair_budget`'s pair indices to its slot by a binary search of
+    the scan, sort the pairs by tile (stable: slots ascending within a
+    tile) and find the per-tile offsets by a binary search of the sorted
+    tiles. ``overflow`` is set when the pairs exceed the budget or a tile
+    lists more than ``capacity * CHUNK`` slots: the lists then lack a slot
+    and the raster takes full iteration (the reference's rule,
+    ``frame.py:64-141``). ``capacity`` >= 1; 0 (no lists, full iteration)
+    is :func:`rasterize`'s."""
+    if height % TILE_H or width % TILE_W:
+        raise ValueError(f"raster target {width}x{height} is not a tile multiple")
+    if capacity < 1:
+        raise ValueError(f"tile list capacity {capacity}: lists need at least 1")
+    dev = coeffs.device
+    tiles_y, tiles_x = height // TILE_H, width // TILE_W
+    n_tiles = tiles_y * tiles_x
+    n_slots = coeffs.shape[0]
+    budget = pair_budget(n_slots, n_tiles, capacity)
+    if n_slots == 0:
+        return TileLists(
+            torch.zeros(budget, dtype=torch.int32, device=dev),
+            torch.zeros(n_tiles + 1, dtype=torch.int32, device=dev),
+            tiles_y, tiles_x, torch.zeros((), dtype=torch.bool, device=dev),
+        )
+    tx0, tx1p, ty0, ty1p = tile_ranges(coeffs)
     nx = torch.clamp(tx1p - tx0, min=0)
     ny = torch.clamp(ty1p - ty0, min=0)
     count = nx * ny
-    total = int(count.sum())
-    n_slots = coeffs.shape[0]
-    if total == 0:
-        return TileLists(
-            torch.zeros(0, dtype=torch.int32, device=dev),
-            torch.zeros(tiles_y * tiles_x + 1, dtype=torch.int32, device=dev),
-            tiles_y, tiles_x,
-        )
-    slot = torch.repeat_interleave(
-        torch.arange(n_slots, device=dev), count, output_size=total
-    )
-    start = torch.cumsum(count, 0) - count
-    local = torch.arange(total, device=dev) - start[slot]
-    nx_s = nx[slot]
+    end = torch.cumsum(count, 0)  # pairs of slots [0, s]
+    pair = torch.arange(budget, device=dev)
+    slot = torch.searchsorted(end, pair, right=True).clamp_(max=n_slots - 1)
+    local = pair - (end - count)[slot]  # the pair's rank among its slot's tiles
+    nx_s = nx[slot].clamp(min=1)
     tile = (ty0[slot] + local // nx_s) * tiles_x + (tx0[slot] + local % nx_s)
-    key = torch.sort(tile * n_slots + slot).values
-    tiles_sorted = key // n_slots
-    per_tile = torch.bincount(tiles_sorted, minlength=tiles_y * tiles_x)
-    offsets = torch.zeros(tiles_y * tiles_x + 1, dtype=torch.int64, device=dev)
-    offsets[1:] = torch.cumsum(per_tile, 0)
-    return TileLists(
-        (key % n_slots).to(torch.int32), offsets.to(torch.int32), tiles_y, tiles_x
-    )
+    total = end[-1]
+    tile = torch.where(pair < total, tile, n_tiles).to(torch.int32)  # padding sorts last
+    tile, order = torch.sort(tile, stable=True)
+    offsets = torch.searchsorted(tile, torch.arange(n_tiles + 1, dtype=torch.int32, device=dev)).to(torch.int32)
+    longest = (offsets[1:] - offsets[:-1]).amax()
+    overflow = (total > budget) | (longest > capacity * CHUNK)
+    return TileLists(slot[order].to(torch.int32), offsets, tiles_y, tiles_x, overflow)
 
 
 # ---------------------------------------------------------------------------
@@ -418,40 +448,55 @@ def bin_triangles(coeffs: torch.Tensor, height: int, width: int) -> TileLists:
 
 def rasterize_plain(
     setup: TriSetup, width: int, height: int, depth_only: bool = False,
-    origin=(0, 0), lists: TileLists | None = None,
+    origin=(0, 0), lists: TileLists | None = None, full: bool = False,
 ) -> VisibilityBuffer:
-    """The raster in plain torch, per tile over batches of listed slots.
+    """The raster in plain torch, per tile over batches of its slots.
 
-    Each batch evaluates every slot's affine forms over the whole tile
-    with the kernel's operations (``b0 = fma(be0, px, a0) + g0 * py``,
-    ``z = fma(dz1, b1, fma(dz0, b0, z2))``: the fused multiply-adds of the
-    reference's CPU vector raster), picks per pixel the maximal
-    candidate z (the LARGER slot on ties) and commits it where it is
-    ``>=`` the carried depth: the ``_chunk_loop_vector`` formulation
+    A tile's slots are its list (``lists``, or :func:`bin_triangles` at
+    the default capacity), or with ``full`` (or lists that overflowed)
+    every slot whose tile range holds the tile: the full-iteration raster,
+    the same slots per tile. Each batch evaluates every slot's affine
+    forms over the whole tile with the kernel's operations (``b0 =
+    fma(be0, px, a0) + g0 * py``, ``z = fma(dz1, b1, fma(dz0, b0,
+    z2))``: the fused multiply-adds of the reference's CPU vector raster),
+    picks per pixel the maximal candidate z (the LARGER slot on ties) and
+    commits it where it is ``>=`` the carried depth: the
+    ``_chunk_loop_vector`` formulation
     (``syzygy_tpu/kernels/raster.py:644-664``), equal to the serial
-    ascending-slot ``z >= depth`` loop the CUDA kernel runs."""
+    ascending-slot ``z >= depth`` loop the CUDA kernel runs. A plain
+    stand-in reads its lists on the host."""
     dev = setup.coeffs.device
-    lists = bin_triangles(setup.coeffs, height, width) if lists is None else lists
+    if not full and lists is None:
+        lists = bin_triangles(setup.coeffs, height, width)
+    full = full or bool(lists.overflow)
+    tiles_y, tiles_x = height // TILE_H, width // TILE_W
+    if full:
+        tx0, tx1p, ty0, ty1p = tile_ranges(setup.coeffs)
+    else:
+        offsets = lists.offsets.tolist()
     oy, ox = int(origin[0]), int(origin[1])
     depth = torch.zeros((height, width), dtype=F32, device=dev)
     tri = torch.full((height, width), -1, dtype=torch.int32, device=dev)
     b0 = torch.zeros((height, width), dtype=F32, device=dev)
     b1 = torch.zeros((height, width), dtype=F32, device=dev)
-    offsets = lists.offsets.tolist()
     rows = torch.arange(TILE_H, device=dev)
     cols = torch.arange(TILE_W, device=dev)
-    for tile in range(lists.tiles_y * lists.tiles_x):
-        begin, end = offsets[tile], offsets[tile + 1]
-        if begin == end:
+    for tile in range(tiles_y * tiles_x):
+        ty, tx = divmod(tile, tiles_x)
+        if full:
+            touches = (tx0 <= tx) & (tx < tx1p) & (ty0 <= ty) & (ty < ty1p)
+            tile_slots = torch.nonzero(touches).flatten()
+        else:
+            tile_slots = lists.slots[offsets[tile] : offsets[tile + 1]]
+        if tile_slots.numel() == 0:
             continue
-        ty, tx = divmod(tile, lists.tiles_x)
         ys = slice(ty * TILE_H, (ty + 1) * TILE_H)
         xs = slice(tx * TILE_W, (tx + 1) * TILE_W)
         px = ((tx * TILE_W + ox + cols).to(F32) + 0.5)[None, None, :]
         py = ((ty * TILE_H + oy + rows).to(F32) + 0.5)[None, :, None]
         d, t, e0_t, e1_t = depth[ys, xs], tri[ys, xs], b0[ys, xs], b1[ys, xs]
-        for s in range(begin, end, _PLAIN_BATCH):
-            ids = lists.slots[s : min(s + _PLAIN_BATCH, end)].long()
+        for s in range(0, tile_slots.numel(), _PLAIN_BATCH):
+            ids = tile_slots[s : s + _PLAIN_BATCH].long()
             c = setup.coeffs[ids][:, :, None, None]  # (B, 12, 1, 1)
             e0 = _fma(c[:, 1], px, c[:, 0]) + c[:, 2] * py
             e1 = _fma(c[:, 4], px, c[:, 3]) + c[:, 5] * py
@@ -476,35 +521,67 @@ def rasterize_plain(
 
 class LaunchCounts:
     """Kernel launches per raster kind, counted by :func:`rasterize` where
-    it launches the CUDA kernel and nowhere else."""
+    it launches the CUDA kernel and nowhere else (a frame replayed from a
+    CUDA graph adds the launches it holds, ``renderer/frame.py``). A
+    listed launch whose lists overflowed takes full iteration inside the
+    kernel and counts as listed."""
+
+    KINDS = ("visibility", "depth", "visibility_full", "depth_full")
 
     def __init__(self):
         self.reset()
 
     def reset(self) -> None:
-        self.visibility = 0  # camera rasters (full visibility buffer)
-        self.depth = 0  # shadow-map rasters (depth only)
+        self.visibility = 0  # camera rasters over tile lists (K1)
+        self.depth = 0  # shadow-map rasters over tile lists (K2)
+        self.visibility_full = 0  # camera rasters by full iteration (K3, tile_list_capacity=0)
+        self.depth_full = 0  # shadow-map rasters by full iteration (K4)
+
+    def snapshot(self) -> dict:
+        return {kind: getattr(self, kind) for kind in self.KINDS}
+
+    def restore(self, counts: dict) -> None:
+        for kind in self.KINDS:
+            setattr(self, kind, counts[kind])
+
+    def add(self, counts: dict) -> None:
+        for kind in self.KINDS:
+            setattr(self, kind, getattr(self, kind) + counts[kind])
 
 
 LAUNCHES = LaunchCounts()
 
 
-def _launch_kernel(setup: TriSetup, lists: TileLists, height, width, depth_only, origin):
+def _launch_kernel(setup: TriSetup, lists: TileLists | None, height, width, depth_only, origin):
+    """Launch ``csrc/raster.cu`` over ``lists``, or by full iteration when
+    they are None."""
     coeffs = setup.coeffs
     if coeffs.dtype != F32 or not coeffs.is_contiguous() or coeffs.shape[1] != _COEFF_WIDTH:
         raise ValueError("coeffs must be a contiguous (T2pad, 12) float32 tensor")
-    if lists.slots.dtype != torch.int32 or lists.offsets.dtype != torch.int32:
-        raise ValueError("tile lists must be int32")
-    if (lists.tiles_y * TILE_H, lists.tiles_x * TILE_W) != (height, width):
-        raise ValueError(f"tile lists cover {lists.tiles_x}x{lists.tiles_y} tiles, not {width}x{height} px")
+    if height % TILE_H or width % TILE_W:
+        raise ValueError(f"raster target {width}x{height} is not a tile multiple")
+    tiles_y, tiles_x = height // TILE_H, width // TILE_W
     box = setup.pixel_box
     if box.dtype != torch.int32 or not box.is_contiguous() or tuple(box.shape) != (coeffs.shape[0], 4):
         raise ValueError("pixel_box must be a contiguous (T2pad, 4) int32 tensor")
     if box.data_ptr() % 16:
         raise ValueError("pixel_box must start on a 16-byte boundary (the kernel reads int4 rows)")
-    if any(t.device != coeffs.device for t in (lists.slots, lists.offsets, box)):
-        raise ValueError("tile lists, pixel boxes and coefficients must be on one device")
     dev = coeffs.device
+    slots = offsets = overflow = None
+    if lists is not None:
+        if lists.slots.dtype != torch.int32 or lists.offsets.dtype != torch.int32:
+            raise ValueError("tile lists must be int32")
+        if (lists.tiles_y, lists.tiles_x) != (tiles_y, tiles_x):
+            raise ValueError(f"tile lists cover {lists.tiles_x}x{lists.tiles_y} tiles, not {width}x{height} px")
+        slots, offsets, overflow = lists.slots, lists.offsets, lists.overflow
+        if overflow.dtype != torch.bool or overflow.numel() != 1:
+            raise ValueError("the overflow flag must be one bool")
+        if any(t.device != dev for t in (slots, offsets, overflow)):
+            raise ValueError("tile lists, pixel boxes and coefficients must be on one device")
+        if slots.numel() == 0:
+            slots = torch.zeros(1, dtype=torch.int32, device=dev)
+    if box.device != dev:
+        raise ValueError("pixel boxes and coefficients must be on one device")
     depth = torch.empty((height, width), dtype=F32, device=dev)
     if depth_only:
         tri = b0 = b1 = None
@@ -512,40 +589,45 @@ def _launch_kernel(setup: TriSetup, lists: TileLists, height, width, depth_only,
         tri = torch.empty((height, width), dtype=torch.int32, device=dev)
         b0 = torch.empty((height, width), dtype=F32, device=dev)
         b1 = torch.empty((height, width), dtype=F32, device=dev)
-    slots = lists.slots if lists.slots.numel() else torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
     err = build.load("raster").szg_raster(
-        coeffs.data_ptr(), box.data_ptr(), slots.data_ptr(), lists.offsets.data_ptr(),
-        lists.tiles_y, lists.tiles_x, int(origin[0]), int(origin[1]), int(depth_only),
-        depth.data_ptr(),
-        tri.data_ptr() if tri is not None else None,
-        b0.data_ptr() if b0 is not None else None,
-        b1.data_ptr() if b1 is not None else None,
+        coeffs.data_ptr(), box.data_ptr(), coeffs.shape[0], ptr(slots), ptr(offsets), ptr(overflow),
+        int(lists is None), tiles_y, tiles_x, int(origin[0]), int(origin[1]), int(depth_only),
+        depth.data_ptr(), ptr(tri), ptr(b0), ptr(b1),
         dev.index, torch._C._cuda_getCurrentRawStream(dev.index),
     )
     if err != 0:
         raise RuntimeError(f"raster kernel launch failed: CUDA error {err}")
+    kind = ("depth" if depth_only else "visibility") + ("_full" if lists is None else "")
+    setattr(LAUNCHES, kind, getattr(LAUNCHES, kind) + 1)
     if depth_only:
-        LAUNCHES.depth += 1
         empty = torch.zeros((0, 0), dtype=F32, device=dev)
         return VisibilityBuffer(depth, empty, empty, empty)
-    LAUNCHES.visibility += 1
     return VisibilityBuffer(depth, tri, b0, b1)
 
 
 def rasterize(
     setup: TriSetup, width: int, height: int, depth_only: bool = False,
-    origin=(0, 0), lists: TileLists | None = None,
+    origin=(0, 0), lists: TileLists | None = None, capacity: int = TILE_LIST_CAPACITY,
 ) -> VisibilityBuffer:
     """Visibility (or depth-only) raster of a padded ``height x width``
     target (tile multiples). One function replaces the reference's four
-    ``pallas_call`` sites (listed/full-iteration x full/depth-only).
+    ``pallas_call`` sites: over per-tile lists (K1/K2: ``lists``, or
+    :func:`bin_triangles` at ``capacity``; lists that overflowed make the
+    kernel take full iteration, decided on the device), or by full
+    iteration over every slot (K3/K4: ``capacity=0`` without ``lists``,
+    the reference's ``tile_list_capacity=0``). Both give the same bits.
 
     CUDA tensors launch ``csrc/raster.cu``; CPU tensors run
     :func:`rasterize_plain`. Any other device raises."""
     kind = setup.coeffs.device.type
     if kind not in ("cuda", "cpu"):
         raise ValueError(f"no raster for device type {kind!r}")
-    lists = bin_triangles(setup.coeffs, height, width) if lists is None else lists
+    if lists is None and capacity:
+        lists = bin_triangles(setup.coeffs, height, width, capacity)
     if kind == "cpu":
-        return rasterize_plain(setup, width, height, depth_only, origin, lists)
+        return rasterize_plain(setup, width, height, depth_only, origin, lists, full=lists is None)
     return _launch_kernel(setup, lists, height, width, depth_only, origin)

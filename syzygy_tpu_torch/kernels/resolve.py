@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from syzygy_tpu_torch.device import constant
 from syzygy_tpu_torch.kernels.raster import TriSetup, VisibilityBuffer, rejoin_slots, triangle_share
 from syzygy_tpu_torch.math.geometry import matvec, matvec_fma, sqrt_rn, vec_norm
 from syzygy_tpu_torch.scene.pack import GeometryStatic
@@ -254,7 +255,7 @@ def resolve_gbuffer_from_records(vis: VisibilityBuffer, records, geometry: Geome
 def _decode_normal_map(normal_tex):
     """``offscreen.frag:50-55``: unsigned -> signed, green-up."""
     nmap = normal_tex[..., :3] * (255.0 / 127.0) - (128.0 / 127.0)
-    return nmap * torch.tensor([1.0, -1.0, 1.0], dtype=F32, device=nmap.device)
+    return nmap * constant([1.0, -1.0, 1.0], F32, nmap.device)
 
 
 def _planes(valid, color_tex, normal, position, orm_tex) -> GBuffer:

@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from syzygy_tpu_torch.device import constant
 from syzygy_tpu_torch.kernels.atmosphere import (
     METERS_PER_MM,
     PI,
@@ -61,7 +62,7 @@ def _norm3(v):
 
 
 def _flip(device):
-    return torch.tensor([1.0, -1.0, 1.0], dtype=F32, device=device)
+    return constant([1.0, -1.0, 1.0], F32, device)
 
 
 def _lut_height(lut) -> int:
@@ -430,7 +431,7 @@ def camera_rays(camera: CameraPacked, atmo: AtmospherePacked, h: int, w: int,
     # constant becomes a reciprocal multiply, then contracts); exact for
     # power-of-two extents, one rounding fewer otherwise.
     def centred(i, extent):
-        inv = torch.tensor(1.0 / extent, dtype=F32, device=dev)
+        inv = torch.full((), 1.0 / extent, dtype=F32, device=dev)
         return (i.double() * inv.double() - 0.5).float() * 2.0
 
     xs = centred(torch.arange(w, dtype=F32, device=dev)[None, :], draw_w)

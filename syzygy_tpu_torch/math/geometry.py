@@ -20,6 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from syzygy_tpu_torch.device import constant
+
 F32 = torch.float32
 
 
@@ -59,11 +61,13 @@ def vec_norm(v: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Ten
     return sqrt_rn(torch.sum(v * v, dim=dim, keepdim=keepdim))
 
 
-# The reference's world axes as CPU constants; device code takes a copy on
-# its own device with world_forward/world_up/world_right(device).
-WORLD_FORWARD = torch.tensor([0.0, 0.0, 1.0], dtype=F32)
-WORLD_UP = torch.tensor([0.0, -1.0, 0.0], dtype=F32)
-WORLD_RIGHT = torch.tensor([1.0, 0.0, 0.0], dtype=F32)
+# The reference's world axes as CPU constants; device code reads the
+# shared copy on its own device (world_forward/world_up/world_right(device),
+# device.constant): never write to it.
+_FORWARD, _UP, _RIGHT = (0.0, 0.0, 1.0), (0.0, -1.0, 0.0), (1.0, 0.0, 0.0)
+WORLD_FORWARD = torch.tensor(_FORWARD, dtype=F32)
+WORLD_UP = torch.tensor(_UP, dtype=F32)
+WORLD_RIGHT = torch.tensor(_RIGHT, dtype=F32)
 
 
 def _f32(x) -> torch.Tensor:
@@ -73,15 +77,15 @@ def _f32(x) -> torch.Tensor:
 
 
 def world_forward(device) -> torch.Tensor:
-    return WORLD_FORWARD.to(device, copy=True)
+    return constant(_FORWARD, F32, device)
 
 
 def world_up(device) -> torch.Tensor:
-    return WORLD_UP.to(device, copy=True)
+    return constant(_UP, F32, device)
 
 
 def world_right(device) -> torch.Tensor:
-    return WORLD_RIGHT.to(device, copy=True)
+    return constant(_RIGHT, F32, device)
 
 
 def matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -309,7 +313,7 @@ def look_at_vk(eye, center, up) -> torch.Tensor:
             z, z, z, o,
         ]
     )
-    flip = scale_matrix(torch.tensor([1.0, -1.0, -1.0], dtype=F32, device=eye.device))
+    flip = scale_matrix(constant([1.0, -1.0, -1.0], F32, eye.device))
     return matmul4(flip, look_rh)
 
 
@@ -396,15 +400,15 @@ class AABB(NamedTuple):
     half_extent: torch.Tensor  # (..., 3)
 
     def collect_vertices(self) -> torch.Tensor:
-        signs = torch.tensor(
+        signs = constant(
             [
                 [sx, sy, sz]
                 for sx in (-1.0, 1.0)
                 for sy in (-1.0, 1.0)
                 for sz in (-1.0, 1.0)
             ],
-            dtype=F32,
-            device=self.center.device,
+            F32,
+            self.center.device,
         )
         return self.center[..., None, :] + self.half_extent[..., None, :] * signs
 

@@ -137,7 +137,8 @@ def partition_case(sp: int, maps: list, device: str, width: int = 256, height: i
     """The three split sites of one frame of the dry run's scene on a
     (1, sp) mesh on ``device``, each split and whole on this rank: the
     camera triangle setup and the resolve records, and the shadow rasters
-    of the map slots ``maps``. Returns both versions of each (CPU)."""
+    of the first ``max(maps) + 1`` map slots, those in ``maps`` active.
+    Returns both versions of each (CPU)."""
     from syzygy_tpu_torch.kernels.raster import setup_triangles
     from syzygy_tpu_torch.kernels.resolve import build_resolve_records, transform_normals, transform_positions
     from syzygy_tpu_torch.math.geometry import matmul4
@@ -155,13 +156,16 @@ def partition_case(sp: int, maps: list, device: str, width: int = 256, height: i
     normals = transform_normals(geometry.normals, geometry.vert_instance, state.model_inv_transpose)
     world_h = torch.cat([world, torch.ones_like(world[:, :1])], dim=-1)
     config = RenderConfig(width=width, height=height, shadow_dim=shadow_dim)
+    active = torch.zeros(max(maps, default=-1) + 1, dtype=torch.bool)
+    active[list(maps)] = True
+    active = active.to(mesh.device)
     out = {}
     for name, group in (("split", mesh.sp_group), ("whole", None)):
         setup = setup_triangles(clip, geometry.triangles, geometry.tri_valid, width, height, +1, group=group)
         out[name] = {
             "setup": {k: v.cpu() for k, v in setup._asdict().items()},
             "records": build_resolve_records(setup, geometry, world, normals, group).cpu(),
-            "shadow_maps": _shadow_pass(geometry, world_h, state, config, maps, group).cpu(),
+            "shadow_maps": _shadow_pass(geometry, world_h, state, config, active, group).cpu(),
         }
     return out
 

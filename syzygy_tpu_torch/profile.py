@@ -5,15 +5,17 @@
 Renders the scene at the default 1920x1080 RenderConfig on ``cuda:0``
 (``flagship-exact``: the chess flagship in the quirk-exact configuration,
 ``n_shadow_maps=4, aerial_lut=False, fast_sky_reflection=False``):
-2 warm-up frames, then
+2 warm-up frames (the first captures the frame's CUDA graph), then
 
-1. median ms/frame of 5 frames (CUDA events) and peak memory;
-2. one frame under ``torch.profiler`` with only CUDA activity on: the
-   device's summed kernel (and copy) time, the number of launches, the
-   span from the first kernel's start to the last one's end, and the busy
-   share of that span; the summed kernel time is also divided by the
-   median ms/frame of step 1 (same run);
-3. per layer: wall-clock ms of each frame-graph step. Each wrapped step
+1. median ms/frame of 5 frames through ``render_frame`` (replayed from
+   the graph; CUDA events) and peak memory, and of 5 eager frames
+   (``render_frame_eager``);
+2. one replayed frame under ``torch.profiler`` with only CUDA activity
+   on: the device's summed kernel (and copy) time, the number of
+   launches, the span from the first kernel's start to the last one's
+   end, and the busy share of that span; the summed kernel time is also
+   divided by the replayed median ms/frame of step 1 (same run);
+3. per layer, on eager frames: wall-clock ms of each frame-graph step. Each wrapped step
    synchronises before and after, so steps do not overlap and their sum
    exceeds an unwrapped frame by the added syncs. A step called inside
    another wrapped step counts only in the outer one: ``_shadow_pass``
@@ -85,22 +87,28 @@ def main(argv=None) -> None:
     device = torch.device("cuda", 0)
     scene, geometry, config = _scene(args.scene, device)
 
-    def one_frame():
+    def one_frame(render=frame.render_frame):
         params = upload_frame_params(pack_frame_params(scene, config.width / config.height), device)
-        return frame.render_frame(geometry, params, config)
+        return render(geometry, params, config)
+
+    def timed_frames(render):
+        times = []
+        for _ in range(TIMED_FRAMES):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            one_frame(render)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return times
 
     for _ in range(2):
         one_frame()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    times = []
-    for _ in range(TIMED_FRAMES):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        one_frame()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+    times = timed_frames(frame.render_frame)
+    peak = int(torch.cuda.max_memory_allocated(device))
+    eager_times = timed_frames(frame.render_frame_eager)
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -139,9 +147,9 @@ def main(argv=None) -> None:
 
         setattr(frame, name, timed)
     try:
-        one_frame()
+        one_frame(frame.render_frame_eager)
         steps.clear()
-        one_frame()
+        one_frame(frame.render_frame_eager)
     finally:
         for name, orig in originals.items():
             setattr(frame, name, orig)
@@ -158,7 +166,9 @@ def main(argv=None) -> None:
         "triangles": int(geometry.tri_valid.sum()),
         "median_ms_per_frame": statistics.median(times),
         "ms_per_frame": times,
-        "peak_mem_bytes": int(torch.cuda.max_memory_allocated(device)),
+        "eager_median_ms_per_frame": statistics.median(eager_times),
+        "eager_ms_per_frame": eager_times,
+        "peak_mem_bytes": peak,
         "profiled_frame": {
             "kernel_ms": busy_ms,
             "kernel_launches": len(kernels),

@@ -1,10 +1,10 @@
 """The frame graph: scene state to final image.
 
 Port of ``syzygy_tpu/renderer/frame.py`` (``render_frame``,
-``render_frame_packed``, ``render_frame_rows``) on one device, eagerly:
+``render_frame_packed``, ``render_frame_rows``) on one device:
 
 1. geometry: frame state, vertex transforms, one depth raster per shadow
-   map that anything samples, the camera triangle setup + visibility
+   map slot (empty where nothing samples it), the camera triangle setup + visibility
    raster, and the G-buffer resolve (per-triangle records, or the
    multi-gather form when the geometry has mips);
 2. shading: deferred lighting (5x5 PCF on f16 maps); with the atmosphere
@@ -13,6 +13,16 @@ Port of ``syzygy_tpu/renderer/frame.py`` (``render_frame``,
    the quirk-exact per-pixel integrals;
 3. the debug line overlay, the supersample box filter, the OETF and the
    crop.
+
+The host enqueues a whole frame without waiting for the device, as the
+reference's does (``frame.py:9-13``): light activity, shadow-map
+activity and tile-list overflow are device tensors that the kernels and
+masked sums read, and every size is static. On a CUDA device
+:func:`render_frame` and :func:`render_frame_packed` therefore replay
+each frame from a CUDA graph, captured once per (geometry, param spec,
+config) after one eager frame; :func:`render_frame_eager` and
+:func:`render_frame_rows` (which may hold collectives) stay eager, as does
+every CPU frame.
 
 The TPU-only structure of the reference (three jitted programs, the
 68-row ``lax.map`` sky chunks that dodge a TPU compiler crash, quad/joint
@@ -23,11 +33,14 @@ sky-view, f16 sampling copies of the sky's LUTs) are kept.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import time
 
+import numpy as np
 import torch
 
-from syzygy_tpu_torch.device import to_tensor
+from syzygy_tpu_torch.device import constant, to_tensor
 from syzygy_tpu_torch.kernels.atmosphere import (
     METERS_PER_MM,
     compute_skyview_lut,
@@ -36,7 +49,7 @@ from syzygy_tpu_torch.kernels.atmosphere import (
 )
 from syzygy_tpu_torch.kernels.debuglines import draw_lines
 from syzygy_tpu_torch.kernels.lighting import convert_pbr, deferred_lighting, directional_pcf, light_activity
-from syzygy_tpu_torch.kernels.raster import TILE_H, TILE_W, rasterize, setup_triangles
+from syzygy_tpu_torch.kernels.raster import LAUNCHES, TILE_H, TILE_W, rasterize, setup_triangles
 from syzygy_tpu_torch.kernels.resolve import (
     resolve_gbuffer,
     transform_normals,
@@ -55,6 +68,7 @@ from syzygy_tpu_torch.scene.pack import (
     FrameParams,
     FrameParamSpec,
     GeometryStatic,
+    param_leaves,
     prepare_frame_state,
     unflatten_frame_params,
 )
@@ -82,10 +96,13 @@ class RenderConfig:
     by the per-pixel-integral sky only, as in the reference).
     ``shard_triangle_setup`` splits the camera setup and the resolve
     records over the row group of :func:`render_frame_rows` (``group=``).
+    ``tile_list_capacity`` sizes the rasters' tile lists
+    (``kernels/raster.py::bin_triangles``); lists that would drop a slot,
+    and capacity 0, take the full-iteration raster, with the same bits.
     ``pcf_bitmask`` and ``pcf_window2d`` are gather layouts of the same
     PCF taps, and the scheduling-only knobs of the TPU build (program
-    fusion, row chunks, tile-list capacity, raster tile/chunk sizes,
-    ``raster_unroll``, ``raster_vector``) are accepted and ignored."""
+    fusion, row chunks, raster tile/chunk sizes, ``raster_unroll``,
+    ``raster_vector``) are accepted and ignored."""
 
     width: int = 1920
     height: int = 1080
@@ -165,46 +182,51 @@ class RenderConfig:
         return _round_up(self.render_height, TILE_H)
 
 
-def _shadow_pass(geometry: GeometryStatic, world_h, state, config: RenderConfig, maps_to_raster, group=None):
-    """Depth-only rasters, one per map in ``maps_to_raster``
-    (``frame.py:515-687``: front-face culling, reverse-Z, depth bias).
-    Every other map stays all-zero, which equals an empty raster.
+def _shadow_pass(geometry: GeometryStatic, world_h, state, config: RenderConfig, active, group=None):
+    """Depth-only rasters of the shadow-map slots (``frame.py:515-687``:
+    front-face culling, reverse-Z, depth bias). ``active`` ((n,) bool on
+    the device, :func:`kernels.lighting.light_activity`'s ``shadow_maps``)
+    says which of the first n slots anything samples. Every one of them is
+    rastered, its triangles valid only where its flag is set, so an
+    inactive slot's raster is empty: the zero map, as the reference's
+    inactive slots keep (``frame.py:614-618``); the maps past n stay zero.
 
     With a ``group`` of several ranks (``parallel.sharding.Group``) the
-    maps are split over it (``frame.py:619-655``): each rank rasters a
-    contiguous share of ``maps_to_raster``, ``ceil(n / size)`` slots long
-    so that every rank gathers the same shape (the list is the same on
-    every rank: they render one frame), and the gathered maps go back to
-    their slots."""
+    slots are split over it statically (``frame.py:619-655``): each rank
+    rasters a contiguous share of ``ceil(n / size)`` slots, so that every
+    rank gathers the same shape, and the gathered maps go back to their
+    slots."""
     dim = config.shadow_dim
     d, s = state.directional_lights, state.spot_lights
     pv = torch.cat([matmul4(d.projection, d.view), matmul4(s.projection, s.view)], dim=0)
     maps = torch.zeros(
         (N_DIRECTIONAL + MAX_SPOT_LIGHTS, dim, dim), dtype=F32, device=world_h.device
     )
-    if not maps_to_raster:
+    n = active.shape[0]
+    if n == 0:
         return maps
     tri_valid = geometry.tri_valid & geometry.tri_casts_shadow
     corners_world = world_h[geometry.triangles.long()]  # (T, 3, 4), gathered once
 
     def raster_one(i):
         setup = setup_triangles(
-            None, geometry.triangles, tri_valid, dim, dim,
+            None, geometry.triangles, tri_valid & active[i], dim, dim,
             cull_keep_sign=-1,  # front-face culling (pipelines.cpp:654-663)
             corner_clip=matvec(pv[i], corners_world),
             depth_bias_constant=config.shadow_bias_constant,
             depth_bias_slope=config.shadow_bias_slope,
         )
-        return rasterize(setup, dim, dim, depth_only=True).depth
+        return rasterize(setup, dim, dim, depth_only=True, capacity=config.tile_list_capacity).depth
 
-    split = group is not None and group.size > 1
-    size, index = (group.size, group.index) if split else (1, 0)
-    per = -(-len(maps_to_raster) // size)
+    if group is None or group.size == 1:
+        for i in range(n):
+            maps[i] = raster_one(i)
+        return maps
+    per = -(-n // group.size)
     local = torch.zeros((per, dim, dim), dtype=F32, device=world_h.device)
-    for k, i in enumerate(maps_to_raster[index * per : (index + 1) * per]):
+    for k, i in enumerate(range(group.index * per, min((group.index + 1) * per, n))):
         local[k] = raster_one(i)
-    flat = group.all_gather(local).reshape(-1, dim, dim) if split else local
-    maps[torch.tensor(maps_to_raster, device=maps.device)] = flat[: len(maps_to_raster)]
+    maps[:n] = group.all_gather(local).reshape(-1, dim, dim)[:n]
     return maps
 
 
@@ -216,7 +238,7 @@ def _geometry(
     state, vertex transforms, the shadow rasters of the maps anything
     samples, the camera raster of rows ``[row0, row0 + local_rows)`` and
     the G-buffer resolve. Returns (state, vis, gbuffer, shadow_maps,
-    activity, proj_view); the last two feed the shading stage. ``group``
+    proj_view); the last feeds the shading stage. ``group``
     splits the shadow rasters and, with ``config.shard_triangle_setup``,
     the camera setup and the resolve records over its ranks."""
     state = prepare_frame_state(params)
@@ -244,9 +266,9 @@ def _geometry(
         grid_width=config.padded_width, grid_height=local_rows, grid_origin=(row0, 0),
         group=setup_group,
     )
-    vis = rasterize(setup, config.padded_width, local_rows, origin=(row0, 0))
+    vis = rasterize(setup, config.padded_width, local_rows, origin=(row0, 0), capacity=config.tile_list_capacity)
     gbuffer = resolve_gbuffer(vis, setup, geometry, world, world_normals, group=setup_group)
-    return state, vis, gbuffer, shadow_maps, activity, proj_view
+    return state, vis, gbuffer, shadow_maps, proj_view
 
 
 def _stage_geometry(
@@ -273,7 +295,7 @@ def render_frame_linear(
     :func:`render_frame_rows`."""
     config.check()
     local_rows = config.padded_height if local_rows is None else local_rows
-    state, vis, gbuffer, shadow_maps, activity, proj_view = _geometry(
+    state, vis, gbuffer, shadow_maps, proj_view = _geometry(
         geometry, params, config, row0, local_rows, group
     )
     sun_shadow = None
@@ -281,8 +303,9 @@ def render_frame_linear(
         sun_shadow = _sun_pcf(state, gbuffer, shadow_maps, config)
     color = torch.clamp(
         deferred_lighting(
-            gbuffer, state.camera, state.directional_lights, state.spot_lights, shadow_maps,
-            activity, sun_shadow=sun_shadow, **_pcf_flags(config),
+            gbuffer, state.camera, state.directional_lights, state.directional_count,
+            state.directional_skip_count, state.spot_lights, state.spot_count, shadow_maps,
+            shadowless_eps=config.shadowless_strength_eps, sun_shadow=sun_shadow, **_pcf_flags(config),
         ),
         0.0,
         1.0,
@@ -326,8 +349,8 @@ def _sky(state, lit, depth, gbuffer, shadow_maps, config: RenderConfig, row0: in
     atmo, cam = state.atmosphere, state.camera
     t_lut = compute_transmittance_lut(atmo, config.transmittance_width, config.transmittance_height)
     zero = torch.zeros_like(atmo.planet_radius_mm)
-    origin_mm = cam.position[:3] / METERS_PER_MM * torch.tensor(
-        [1.0, -1.0, 1.0], dtype=F32, device=zero.device
+    origin_mm = cam.position[:3] / METERS_PER_MM * constant(
+        [1.0, -1.0, 1.0], F32, zero.device
     ) + torch.stack([zero, atmo.planet_radius_mm, zero])
     sky_arr = compute_skyview_lut(
         atmo, origin_mm, t_lut, config.skyview_width, config.skyview_height, fast=config.fast_sky
@@ -374,22 +397,163 @@ def _encode(color, config: RenderConfig):
     return oetf_srgb(color) if config.oetf == "srgb" else oetf_pure_gamma(color)
 
 
-def render_frame(geometry: GeometryStatic, params: FrameParams, config: RenderConfig):
-    """Scene state -> (height, width, 3) nonlinear-encoded image in [0, 1],
-    on the geometry's device."""
+def render_frame_eager(geometry: GeometryStatic, params: FrameParams, config: RenderConfig):
+    """:func:`render_frame` enqueued op by op, without a CUDA graph."""
     encoded = _encode(render_frame_linear(geometry, params, config), config)
     return encoded[: config.height, : config.width]
 
 
+def render_frame(geometry: GeometryStatic, params: FrameParams, config: RenderConfig):
+    """Scene state -> (height, width, 3) nonlinear-encoded image in [0, 1],
+    on the geometry's device. On a CUDA device the frame is replayed from
+    its CUDA graph (:func:`render_frame_packed`; ``params`` are packed
+    into one f32 row on the device first, their integer and bool leaves
+    exact), bitwise :func:`render_frame_eager`; params that require grad,
+    and every CPU frame, render eagerly (a graph records no autograd)."""
+    leaves = param_leaves(params)
+    if geometry.positions.device.type != "cuda" or (
+        torch.is_grad_enabled() and any(leaf.requires_grad for leaf in leaves)
+    ):
+        return render_frame_eager(geometry, params, config)
+    spec = FrameParamSpec(
+        tuple(tuple(leaf.shape) for leaf in leaves),
+        tuple(str(leaf.dtype).removeprefix("torch.") for leaf in leaves),
+        tuple(int(x) for x in np.cumsum([0] + [leaf.numel() for leaf in leaves[:-1]])),
+        sum(leaf.numel() for leaf in leaves),
+    )
+    row = torch.cat([leaf.reshape(-1).to(F32) for leaf in leaves])
+    return render_frame_packed(geometry, row, spec, config)
+
+
 def render_frame_packed(geometry: GeometryStatic, buffer, spec: FrameParamSpec, config: RenderConfig):
     """:func:`render_frame` from a flattened FrameParams buffer
-    (:func:`scene.pack.flatten_frame_params`): one host-to-device copy per
-    frame, the leaves views of it on the geometry's device. ``buffer`` is
-    the host's f32 numpy array, or an f32 tensor (a row of params that
-    were uploaded together)."""
+    (:func:`scene.pack.flatten_frame_params`), the leaves views of it on
+    the geometry's device. ``buffer`` is the host's f32 numpy array, or an
+    f32 tensor (a row of params that were uploaded together).
+
+    On a CUDA device the call returns once the frame is enqueued: a numpy
+    row goes through a pinned staging ring (``non_blocking``), and the
+    frame replays from the CUDA graph of (geometry, spec, config),
+    captured at the first call after one eager warm-up frame (which that
+    call returns). The returned image is the caller's: later frames do not
+    overwrite it. A failed capture or replay raises."""
     device = geometry.positions.device
-    buffer = buffer.to(device) if isinstance(buffer, torch.Tensor) else to_tensor(buffer, device)
-    return render_frame(geometry, unflatten_frame_params(spec, buffer), config)
+    if device.type != "cuda":
+        buffer = buffer.to(device) if isinstance(buffer, torch.Tensor) else to_tensor(buffer, device)
+        return render_frame_eager(geometry, unflatten_frame_params(spec, buffer), config)
+    key = (id(geometry), spec, config)
+    graph = _GRAPHS.get(key)
+    if graph is None:
+        config.check()
+        row = torch.empty(spec.total, dtype=F32, device=device)
+        _stage(buffer, row)
+        graph, image = _FrameGraph.capture(geometry, row, spec, config)
+        _GRAPHS[key] = graph
+        while len(_GRAPHS) > GRAPH_CACHE_SIZE:
+            _GRAPHS.popitem(last=False)
+        return image
+    _GRAPHS.move_to_end(key)
+    _stage(buffer, graph.row)
+    return graph.replay()
+
+
+GRAPH_CACHE_SIZE = 4  # captured frames kept, least recently used out first
+STAGING_SLOTS = 2  # pinned rows per (device, size): a row in flight is never overwritten
+
+
+class _FrameGraph:
+    """One frame captured as a CUDA graph: its static input row, its
+    output, the raster launches it holds, and what its capture took."""
+
+    def __init__(self, graph, geometry, row, output, launches, capture_s, pool_bytes):
+        self.graph = graph
+        self.geometry = geometry  # the graph reads its tensors: keep them alive
+        self.row = row
+        self.output = output
+        self.launches = launches
+        self.capture_s = capture_s
+        self.pool_bytes = pool_bytes
+
+    @classmethod
+    def capture(cls, geometry, row, spec, config):
+        """One eager frame on the capture stream (it builds the kernels,
+        makes the device constants and fills the allocator), then the
+        frame captured from the same stream into a pool of its own.
+        Returns the graph and the eager frame."""
+        device = row.device
+        stream = _capture_stream(device)
+        current = torch.cuda.current_stream(device)
+        stream.wait_stream(current)
+        with torch.no_grad(), torch.cuda.stream(stream):
+            image = render_frame_eager(geometry, unflatten_frame_params(spec, row), config)
+            counts = LAUNCHES.snapshot()
+            reserved = torch.cuda.memory_reserved(device)
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                output = render_frame_eager(geometry, unflatten_frame_params(spec, row), config)
+            finally:
+                graph.capture_end()
+                held = {k: v - counts[k] for k, v in LAUNCHES.snapshot().items()}
+                LAUNCHES.restore(counts)  # captured, not launched
+            capture_s = time.perf_counter() - t0
+        current.wait_stream(stream)
+        image.record_stream(current)
+        pool = torch.cuda.memory_reserved(device) - reserved
+        return cls(graph, geometry, row, output, held, capture_s, pool), image
+
+    def replay(self):
+        self.graph.replay()
+        LAUNCHES.add(self.launches)
+        return self.output.clone()
+
+
+_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+_CAPTURE_STREAMS: dict = {}
+_STAGING: dict = {}
+
+
+def _capture_stream(device) -> torch.cuda.Stream:
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
+def _stage(buffer, row: torch.Tensor) -> None:
+    """Copy a packed params row into ``row`` (on the card) without waiting
+    for the stream: a device tensor directly, host data through the next
+    slot of a pinned ring. The host waits only for that slot's previous
+    copy, ``STAGING_SLOTS`` calls ago."""
+    if isinstance(buffer, torch.Tensor) and buffer.device.type == "cuda":
+        row.copy_(buffer)
+        return
+    host = np.asarray(buffer.numpy() if isinstance(buffer, torch.Tensor) else buffer, np.float32)
+    if host.size != row.numel():
+        raise ValueError(f"params row of {host.size} values, the spec holds {row.numel()}")
+    key = (row.device, row.numel())
+    if key not in _STAGING:
+        slots = [torch.empty(row.numel(), dtype=F32, pin_memory=True) for _ in range(STAGING_SLOTS)]
+        _STAGING[key] = [slots, [None] * STAGING_SLOTS, 0]
+    ring = _STAGING[key]
+    slots, events, k = ring
+    ring[2] = (k + 1) % STAGING_SLOTS
+    if events[k] is not None:
+        events[k].synchronize()
+    slots[k].numpy()[:] = host.reshape(-1)
+    row.copy_(slots[k], non_blocking=True)
+    events[k] = torch.cuda.Event()
+    events[k].record(torch.cuda.current_stream(row.device))
+
+
+def captured_frames() -> list[dict]:
+    """What each cached CUDA graph holds: its config, the host seconds
+    its capture took, the bytes its capture added to the device's
+    reserved memory (its pool) and its raster launches."""
+    return [
+        {"config": key[2], "capture_s": g.capture_s, "pool_bytes": g.pool_bytes, "launches": g.launches}
+        for key, g in _GRAPHS.items()
+    ]
 
 
 def render_frame_rows(

@@ -14,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from syzygy_tpu_torch.device import to_tensor
+from syzygy_tpu_torch.device import constant, to_tensor
 from syzygy_tpu_torch.math.geometry import AABB, aabb_from_min_max, forward_from_eulers, vec_norm, world_up
 from syzygy_tpu_torch.scene.lights import DirectionalLight, make_directional
 
@@ -135,7 +135,7 @@ def pack_atmosphere(raw: AtmosphereRaw) -> AtmospherePacked:
     tensors: the sky basis is +y up, hence the y flip of the sun."""
     sun_dir = -forward_from_eulers(raw.sun_euler_angles)
     sun_dir = sun_dir / vec_norm(sun_dir)
-    sun_dir = sun_dir * torch.tensor([1.0, -1.0, 1.0], dtype=F32, device=sun_dir.device)
+    sun_dir = sun_dir * constant([1.0, -1.0, 1.0], F32, sun_dir.device)
     return AtmospherePacked(
         scattering_rayleigh_per_mm=raw.scattering_rayleigh_per_mm,
         density_scale_rayleigh_mm=raw.density_scale_rayleigh_mm,
@@ -166,8 +166,8 @@ def _create_sunlight(scene_bounds: AABB, sun_euler_angles: torch.Tensor) -> Dire
     """``createSunlight`` (``scene.cpp:584-598``)."""
     dev = sun_euler_angles.device
     return make_directional(
-        color=torch.tensor([1.0, 1.0, 1.0, 1.0], dtype=F32, device=dev),
-        strength=torch.tensor(SUNLIGHT_STRENGTH, dtype=F32, device=dev),
+        color=constant([1.0, 1.0, 1.0, 1.0], F32, dev),
+        strength=constant(SUNLIGHT_STRENGTH, F32, dev),
         euler_angles=sun_euler_angles,
         captured_bounds=scene_bounds,
     )
@@ -179,9 +179,9 @@ def _create_moonlight(scene_bounds: AABB, sun_cosine: torch.Tensor, sunset_cosin
     to ``min(1, x)``."""
     dev = sun_cosine.device
     return make_directional(
-        color=torch.tensor(MOONLIGHT_COLOR_RGBA, dtype=F32, device=dev),
+        color=constant(MOONLIGHT_COLOR_RGBA, F32, dev),
         strength=0.02 * torch.clamp(torch.abs(sun_cosine - sunset_cosine) / MOONRISE_LENGTH, max=1.0),
-        euler_angles=torch.tensor([-math.pi / 2.0, 0.0, 0.0], dtype=F32, device=dev),
+        euler_angles=constant([-math.pi / 2.0, 0.0, 0.0], F32, dev),
         captured_bounds=scene_bounds,
     )
 

@@ -351,7 +351,8 @@ class FrameParamSpec(NamedTuple):
     total: int  # total f32 elements
 
 
-def _leaves(params: FrameParams) -> list:
+def param_leaves(params: FrameParams) -> list:
+    """The leaves of ``params`` in field order, nested tuples flattened."""
     out = []
     for leaf in params:
         out.extend(leaf if isinstance(leaf, tuple) else [leaf])
@@ -361,7 +362,7 @@ def _leaves(params: FrameParams) -> list:
 def frame_param_spec(params: FrameParams) -> FrameParamSpec:
     shapes, dtypes, offsets = [], [], []
     offset = 0
-    for leaf in _leaves(params):
+    for leaf in param_leaves(params):
         arr = np.asarray(leaf)
         shapes.append(tuple(arr.shape))
         dtypes.append(arr.dtype.name)
@@ -377,7 +378,7 @@ def flatten_frame_params(
     per frame instead of one per leaf. Integer and bool leaves are stored
     as f32 (small counts and flags, exact)."""
     buf = out if out is not None else np.empty(spec.total, np.float32)
-    for leaf, off in zip(_leaves(params), spec.offsets):
+    for leaf, off in zip(param_leaves(params), spec.offsets):
         arr = np.asarray(leaf)
         buf[off : off + arr.size] = arr.astype(np.float32).reshape(-1)
     return buf
@@ -440,7 +441,7 @@ def prepare_frame_state(params: FrameParams) -> FrameState:
         directional_lights=bake_directional(
             params.atmosphere, params.bounds_min, params.bounds_max
         ),
-        directional_count=torch.tensor(2, dtype=torch.int32, device=dev),
+        directional_count=torch.full((), 2, dtype=torch.int32, device=dev),
         directional_skip_count=params.directional_skip_count.to(torch.int32),
         spot_lights=make_spot_batched(params.spots),
         spot_count=params.spot_count.to(torch.int32),

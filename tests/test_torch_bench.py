@@ -142,7 +142,8 @@ def test_measure_scene_on_cpu():
     assert timing.device == "cpu" and timing.peak_bytes is None
     assert len(timing.group_ms) == 2 and all(np.isfinite(t) and t > 0 for t in timing.group_ms)
     assert timing.ms == pytest.approx(np.median(timing.group_ms))
-    assert timing.launches_per_frame == {"visibility": 0.0, "depth": 0.0}  # no kernel on the CPU
+    assert timing.launches_per_frame == {"visibility": 0.0, "depth": 0.0, "visibility_full": 0.0, "depth_full": 0.0}  # no kernel on the CPU
+    assert timing.graph_pool_bytes is None and timing.capture_s > 0 and len(timing.issue_ms) == 2
     assert tuple(timing.last_frame.shape) == (32, 64, 3)
 
     fresh, _ = bench.default_scene_animated()

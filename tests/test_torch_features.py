@@ -432,10 +432,12 @@ def _port_render(port, color, forward, gated=False):
     fwd[0, :3] = forward
     dirs = dirs._replace(forward=fwd)
     counts = [torch.tensor(v, dtype=torch.int32) for v in (2 if gated else 1, 0, 1)]
-    activity = light_activity(dirs, counts[0], counts[1], spots, counts[2], GATE_EPS if gated else 0.0, 4)
-    assert activity.shadowed_dirs == [0] and activity.spots == [0]
-    assert activity.unshadowed_dirs == ([1] if gated else [])
-    return deferred_lighting(gbuffer, cam, dirs, spots, smaps, activity)
+    eps = GATE_EPS if gated else 0.0
+    activity = light_activity(dirs, counts[0], counts[1], spots, counts[2], eps, 4)
+    active = {name: torch.nonzero(getattr(activity, name)).flatten().tolist() for name in activity._fields}
+    assert active["shadowed_dirs"] == [0] and active["spots"] == [0]
+    assert active["unshadowed_dirs"] == ([1] if gated else [])
+    return deferred_lighting(gbuffer, cam, dirs, *counts[:2], spots, counts[2], smaps, shadowless_eps=eps)
 
 
 @pytest.mark.parametrize("gated", [False, True], ids=["compacted", "gated"])

@@ -145,19 +145,16 @@ def test_resolve_matches_reference():
 def test_lighting_matches_reference():
     """deferred_lighting (clamped) from the reference's G-buffer and shadow
     maps, f16 PCF, relative shadowless gate: 1e-5."""
-    from syzygy_tpu_torch.kernels.lighting import deferred_lighting, light_activity
+    from syzygy_tpu_torch.kernels.lighting import deferred_lighting
     from syzygy_tpu_torch.kernels.resolve import GBuffer
     from syzygy_tpu_torch.scene.pack import prepare_frame_state
 
     _, _, _, maps, gbuffer, lit, _, params_t, config = reference_stages()
     state = prepare_frame_state(params_t)
-    activity = light_activity(
-        state.directional_lights, state.directional_count, state.directional_skip_count,
-        state.spot_lights, state.spot_count, config.shadowless_strength_eps, config.n_shadow_maps,
-    )
     port = deferred_lighting(
         GBuffer(*[_t(x) for x in gbuffer]), state.camera, state.directional_lights,
-        state.spot_lights, _t(maps), activity, pcf_f16=config.pcf_f16,
+        state.directional_count, state.directional_skip_count, state.spot_lights, state.spot_count,
+        _t(maps), pcf_f16=config.pcf_f16, shadowless_eps=config.shadowless_strength_eps,
     )
     np.testing.assert_allclose(torch.clamp(port, 0, 1).numpy(), np.asarray(lit), atol=1e-5, rtol=0)
 

@@ -199,7 +199,7 @@ def test_load_binds_entry_points_once(monkeypatch):
             assert fn.argtypes == argtypes and fn.restype is restype
     # pointers and the stream travel as c_void_p, never as a 32-bit int
     raster_args, _ = build.ENTRY_POINTS["raster"]["szg_raster"]
-    assert raster_args.count(ctypes.c_void_p) == 9 and len(raster_args) == 15
+    assert raster_args.count(ctypes.c_void_p) == 10 and len(raster_args) == 18
     gather_args, _ = build.ENTRY_POINTS["gather"]["szg_lane_gather"]
     assert gather_args.count(ctypes.c_void_p) == 4 and gather_args.count(ctypes.c_longlong) == 2
 
@@ -375,6 +375,11 @@ def _hit(c, e0, e1, z):
     return (e0 >= 0) & (e1 >= 0) & ((1.0 - e0) - e1 >= 0) & (z <= 1.0) & (z >= 0.0) & (c[:, 9] > 0)
 
 
+def _listed(lists):
+    """The list entries, without the padding past ``offsets[-1]``."""
+    return lists.slots[: int(lists.offsets[-1])]
+
+
 def _pairs(lists):
     """The tile of every list entry."""
     off = lists.offsets.long()
@@ -389,7 +394,7 @@ def _whole_tile_hits(setup, lists, origin):
     ys, xs = torch.meshgrid(torch.arange(TILE_H), torch.arange(TILE_W), indexing="ij")
     found = []
     for start in range(0, tiles.numel(), 128):
-        slot = lists.slots[start : start + 128].long()
+        slot = _listed(lists)[start : start + 128].long()
         t = tiles[start : start + 128]
         y = ((t // lists.tiles_x) * TILE_H)[:, None] + ys.reshape(1, -1)
         x = ((t % lists.tiles_x) * TILE_W)[:, None] + xs.reshape(1, -1)
@@ -404,7 +409,7 @@ def _clipped_boxes(setup, lists):
     """Every list entry's pixel box clipped to its tile: (x0, x1, y0, y1)."""
     tiles = _pairs(lists)
     ty, tx = tiles // lists.tiles_x, tiles % lists.tiles_x
-    b = setup.pixel_box[lists.slots.long()].long()
+    b = setup.pixel_box[_listed(lists).long()].long()
     return (
         torch.maximum(b[:, 0], tx * TILE_W), torch.minimum(b[:, 1], tx * TILE_W + TILE_W - 1),
         torch.maximum(b[:, 2], ty * TILE_H), torch.minimum(b[:, 3], ty * TILE_H + TILE_H - 1),
@@ -427,7 +432,7 @@ def test_pixel_boxes_hold_every_hit(case):
     assert bool(inside.all()), f"{int((~inside).sum())} hits outside their slot's box"
     x0, x1, y0, y1 = _clipped_boxes(setup, lists)
     tested = int(((x1 - x0 + 1).clamp(min=0) * (y1 - y0 + 1).clamp(min=0)).sum())
-    assert tested < lists.slots.numel() * TILE_H * TILE_W
+    assert tested < _listed(lists).numel() * TILE_H * TILE_W
 
 
 def test_sliver_takes_the_whole_tile_path():
@@ -477,7 +482,7 @@ def _key_merge(setup, lists, w, h, depth_only, origin, seed):
     oy, ox = origin
     x0, x1, y0, y1 = _clipped_boxes(setup, lists)
     bw, bh = (x1 - x0 + 1).clamp(min=0), (y1 - y0 + 1).clamp(min=0)
-    order = torch.randperm(lists.slots.numel(), generator=torch.Generator().manual_seed(seed))
+    order = torch.randperm(_listed(lists).numel(), generator=torch.Generator().manual_seed(seed))
     keys = torch.zeros(h * w, dtype=torch.int64)
     for part in order.split(97):
         area = bw[part] * bh[part]
@@ -552,3 +557,39 @@ def test_kernel_matches_plain_cases(cuda, case, depth_only):
     if case == "split":
         lists = bin_triangles(setup.coeffs, h, w)
         assert int(lists.offsets[1] - lists.offsets[0]) > 8 * 256  # 8 parts of 2 batches
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_full_iteration_plain_equals_listed_plain(case):
+    """Bitwise: ``rasterize_plain`` by full iteration (every slot whose
+    tile range holds the tile: K3/K4's walk) equals it over the tile
+    lists (K1/K2's), visibility and depth only, on every case."""
+    setup, w, h, origin = _setup(case)
+    for depth_only in (False, True):
+        listed = rasterize_plain(setup, w, h, depth_only=depth_only, origin=origin)
+        full = rasterize_plain(setup, w, h, depth_only=depth_only, origin=origin, full=True)
+        for name in ("depth",) if depth_only else ("depth", "tri", "b0", "b1"):
+            assert torch.equal(getattr(full, name).view(torch.int32), getattr(listed, name).view(torch.int32)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("depth_only", [False, True])
+def test_kernel_full_iteration_matches_plain(cuda, case, depth_only):
+    """Bitwise (a depth-only raster's -0.0 as +0.0): the kernel by full
+    iteration (``capacity=0``, counted as K3/K4) and over lists whose
+    device overflow flag is set (capacity 1 where a tile lists more than
+    64 slots, else forced) equals the plain version."""
+    setup, w, h, origin = _setup(case)
+    setup = _on(setup, cuda)
+    plain = rasterize_plain(setup, w, h, depth_only=depth_only, origin=origin)
+    kind = "depth_full" if depth_only else "visibility_full"
+    before = getattr(LAUNCHES, kind)
+    full = rasterize(setup, w, h, depth_only=depth_only, origin=origin, capacity=0)
+    assert getattr(LAUNCHES, kind) == before + 1
+    lists = bin_triangles(setup.coeffs, h, w, 1)
+    forced = lists._replace(overflow=torch.ones((), dtype=torch.bool, device=cuda))
+    overflowed = rasterize(setup, w, h, depth_only=depth_only, origin=origin, lists=forced)
+    torch.cuda.synchronize()
+    _assert_raster_bits(full, plain, depth_only)
+    _assert_raster_bits(overflowed, plain, depth_only)

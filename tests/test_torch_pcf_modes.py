@@ -121,6 +121,7 @@ def port_stages():
     """The port's geometry stage of the chess flagship at 128x64 on the
     CPU (its sun casts shadows; the golden scene's sun map is empty):
     (state, vis, gbuffer, shadow maps, light activity, config)."""
+    from syzygy_tpu_torch.kernels.lighting import light_activity
     from syzygy_tpu_torch.renderer.frame import RenderConfig, _geometry
     from syzygy_tpu_torch.scene.pack import pack_frame_params, pack_geometry, upload_frame_params
 
@@ -128,7 +129,11 @@ def port_stages():
     config = RenderConfig(width=128, height=64, shadow_dim=256, skyview_width=128, skyview_height=64)
     geometry = pack_geometry(scene, lib, "cpu")
     params = upload_frame_params(pack_frame_params(scene, config.width / config.height), "cpu")
-    state, vis, gbuffer, maps, activity, _ = _geometry(geometry, params, config, 0, config.padded_height)
+    state, vis, gbuffer, maps, _ = _geometry(geometry, params, config, 0, config.padded_height)
+    activity = light_activity(
+        state.directional_lights, state.directional_count, state.directional_skip_count,
+        state.spot_lights, state.spot_count, config.shadowless_strength_eps, config.n_shadow_maps,
+    )
     return state, vis, gbuffer, maps, activity, config
 
 
@@ -169,20 +174,23 @@ def test_lighting_sun_shadow_replaces_the_sun_pcf(q8):
     state, _, gbuffer, maps, _, config = port_stages()
     # the sky pass lights with the sun (directional_skip_count 1); count
     # it in the lighting here, as the frame without the atmosphere does
+    skip = torch.tensor(0, dtype=torch.int32)
     activity = light_activity(
-        state.directional_lights, state.directional_count, torch.tensor(0, dtype=torch.int32),
+        state.directional_lights, state.directional_count, skip,
         state.spot_lights, state.spot_count, config.shadowless_strength_eps, config.n_shadow_maps,
     )
-    assert activity.shadowed_dirs[0] == 0
-    args = (gbuffer, state.camera, state.directional_lights, state.spot_lights, maps, activity)
-    plain = deferred_lighting(*args, pcf_f16=True, pcf_q8=q8)
-    shared = deferred_lighting(
-        *args, pcf_f16=True, pcf_q8=q8, sun_shadow=sun_pcf(state, gbuffer, maps, f16=True, q8=q8)
+    assert bool(activity.shadowed_dirs[0])
+    args = (
+        gbuffer, state.camera, state.directional_lights, state.directional_count, skip, state.spot_lights,
+        state.spot_count, maps,
     )
+    flags = dict(pcf_f16=True, pcf_q8=q8, shadowless_eps=config.shadowless_strength_eps)
+    plain = deferred_lighting(*args, **flags)
+    shared = deferred_lighting(*args, **flags, sun_shadow=sun_pcf(state, gbuffer, maps, f16=True, q8=q8))
     assert torch.equal(shared, plain)
     assert shared.abs().sum() > 0
     # the buffer is what the sun reads: a fully lit sun moves the frame
-    unshadowed = deferred_lighting(*args, pcf_f16=True, pcf_q8=q8, sun_shadow=torch.ones(gbuffer.diffuse.shape[:2]))
+    unshadowed = deferred_lighting(*args, **flags, sun_shadow=torch.ones(gbuffer.diffuse.shape[:2]))
     assert not torch.equal(unshadowed, plain)
 
 

@@ -122,8 +122,9 @@ def _check_vis(port, ref, coeffs, depth_only=False):
 @pytest.mark.parametrize("kernel", ["listed", "full"])
 @pytest.mark.parametrize("depth_only", [False, True])
 def test_raster_plain_matches_reference(which, kernel, depth_only):
-    """rasterize_plain vs the reference's listed (K1/K2) and full-iteration
-    (K3/K4) Pallas rasters on the same setup, interpret mode."""
+    """rasterize_plain over tile lists vs the reference's listed (K1/K2),
+    and by full iteration vs its full-iteration (K3/K4) Pallas rasters on
+    the same setup, interpret mode."""
     from syzygy_tpu.kernels.raster import rasterize, rasterize_listed
 
     from syzygy_tpu_torch.kernels.raster import rasterize_plain
@@ -137,7 +138,7 @@ def test_raster_plain_matches_reference(which, kernel, depth_only):
         assert int(dropped) == 0
     else:
         ref = rasterize(setup, w, h, depth_only=depth_only, unroll=True, vector=True)
-    port = rasterize_plain(_port_setup(which), w, h, depth_only=depth_only)
+    port = rasterize_plain(_port_setup(which), w, h, depth_only=depth_only, full=kernel == "full")
     _check_vis(port, ref, setup.coeffs, depth_only)
 
 
@@ -167,7 +168,8 @@ def test_raster_plain_matches_numpy_reference():
 
 def test_bin_triangles_exact_lists():
     """Each tile lists exactly the slots whose tile range covers it, in
-    ascending slot order; nothing is dropped."""
+    ascending slot order; nothing is dropped, so the overflow flag is
+    clear."""
     from syzygy_tpu_torch.kernels.raster import TILE_H, TILE_W, bin_triangles
 
     setup = _port_setup("dense")
@@ -178,6 +180,7 @@ def test_bin_triangles_exact_lists():
     ty0, ty1p = c[:, 11] // 4096, c[:, 11] % 4096
     offsets = lists.offsets.numpy()
     slots = lists.slots.numpy()
+    assert not bool(lists.overflow)
     assert lists.tiles_x == config.padded_width // TILE_W
     assert lists.tiles_y == config.padded_height // TILE_H
     for tile in range(lists.tiles_y * lists.tiles_x):
@@ -230,9 +233,10 @@ def test_shadow_maps_match_reference(which):
     port = _shadow_pass(geo_t, world_h, state, cfg, activity.shadow_maps).numpy()
     assert port.shape == ref.shape
     np.testing.assert_allclose(port, ref, atol=DEPTH_TOL, rtol=0)
-    assert 0 in activity.shadow_maps and any(port[i].any() for i in activity.shadow_maps)
+    active = torch.nonzero(activity.shadow_maps).flatten().tolist()
+    assert 0 in active and any(port[i].any() for i in active)
     for i in range(port.shape[0]):
-        if i not in activity.shadow_maps:
+        if i not in active:
             assert not port[i].any(), f"inactive map {i} is not all-zero"
 
 

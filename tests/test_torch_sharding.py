@@ -123,9 +123,10 @@ def partition(sp, maps):
 
 
 # map slots 0 and 1 (sun and moon, whose maps hold nothing in this frame)
-# and 2 (the scene's spot): three maps over two ranks (more maps than
-# ranks, the last share short), one map over four (fewer: three ranks
-# raster nothing)
+# and 2 (the scene's spot): three active slots over two ranks (more maps
+# than ranks, the last share short); slot 2 alone active of three over
+# four ranks (fewer: the last rank rasters nothing, two raster an
+# inactive slot's empty map)
 PARTITIONS = [(2, (0, 1, 2)), (4, (2,))]
 
 
