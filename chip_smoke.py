@@ -9,8 +9,8 @@ Phases (each prints its own lines; any failure exits non-zero and prints
 no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every CUDA kernel from ``syzygy_tpu_torch/csrc/*.cu`` (the raster
-   and the lane gather, one ``nvcc`` each, concurrently), with ptxas's
+2. build every CUDA kernel from ``syzygy_tpu_torch/csrc/*.cu`` (the raster,
+   the lane gather and the layer stamp, one ``nvcc`` each, concurrently), with ptxas's
    register report; then the C++ host core (``syzygy_tpu_torch/native.py``
    builds ``csrc/szg_native.cpp`` with ``g++``), which must load, and
    ``Scene.shadow_bounds`` through it on 40 seeded rotated-caster versions
@@ -29,9 +29,12 @@ no result line):
    outputs exceed the L2) on the gather bench's seeded inputs, with
    ``torch.take`` as a yardstick;
    the flagship camera's rows [512, 1088) as a block at a non-zero origin,
-   visibility and depth-only;
+   visibility and depth-only; the layer stamp on a ring of the main path's
+   shape (4096 x 10) across its wrap, its sequence column and counter
+   exactly ``stamp_plain``'s on a copy, its times in mark order;
 4. the main paths, each with the launch counters set to 0 just before and
-   read just after: 4 frames of the default scene and 3 of the chess
+   read just after (the stamps' too: each replay launches the stamps its
+   graph holds): 4 frames of the default scene and 3 of the chess
    flagship through ``renderer.frame.render_frame`` at the default
    1920x1080 RenderConfig (CUDA-event ms/frame, peak memory); the chess
    flagship at 1920x1080 in the quirk-exact configuration of
@@ -984,6 +987,54 @@ def arithmetic_probe(device, n=1 << 20) -> dict:
 BENCH_FRAMES, BENCH_GROUP = 8, 4  # timed frames per scene and frames per group in phase_bench
 
 
+def phase_compare_stamp(device):
+    """The layer stamp (``kernels/stamp.py``) vs ``stamp_plain`` on a copy,
+    on a ring of the main path's shape (``RING_REPLAYS`` x ``MARKS + 1``)
+    whose sequence column holds the replays one lap earlier: three whole
+    frames of ``MARKS`` stamps across the ring's wrap, then a frame cut
+    after four. The sequence column and the counter must be the plain
+    version's exactly, the same cells must hold times, and each slot's
+    times must run in mark order. The stamp alone timed by CUDA events
+    and on the device, the plain one on the host's clock."""
+    from syzygy_tpu_torch.kernels import stamp as st
+    from syzygy_tpu_torch.renderer.layers import MARKS, RING_REPLAYS
+
+    rows, stride = RING_REPLAYS, MARKS + 1
+    ring = torch.full((rows, stride), -1, dtype=torch.int64, device=device)
+    ring[:, -1] = torch.arange(rows, device=device) + rows  # lap 1's replays
+    seq = torch.tensor(3 * rows - 2, dtype=torch.int64, device=device)  # lap 2's last two slots, then slot 0
+    plain_ring, plain_seq = ring.cpu().clone(), seq.cpu().clone()
+    frames = [MARKS] * 3 + [4]
+    for marks in frames:
+        for mark in range(marks):
+            last = mark == MARKS - 1
+            st.stamp(ring, seq, mark, last)
+            st.stamp_plain(plain_ring, plain_seq, mark, last)
+    torch.cuda.synchronize()
+    got = ring.cpu()
+    check(int(seq) == int(plain_seq) == 3 * rows + 1, f"stamp counter {int(seq)}, plain {int(plain_seq)}")
+    check(torch.equal(got[:, -1], plain_ring[:, -1]), "the stamp's sequence column differs from its plain version's")
+    written = got[:, :-1] != -1
+    check(torch.equal(written, plain_ring[:, :-1] != -1), "the stamp wrote other cells than its plain version")
+    slots = [(3 * rows - 2 + f) % rows for f in range(len(frames))]
+    check(int(written.sum()) == sum(frames), f"the stamp wrote {int(written.sum())} times, not {sum(frames)}")
+    for slot, marks in zip(slots, frames):
+        times = got[slot, :marks]
+        check(bool((times[1:] >= times[:-1]).all()), f"slot {slot}: stamp times out of mark order {times.tolist()}")
+    check([int(got[s, -1]) for s in slots] == [3 * rows - 2, 3 * rows - 1, 3 * rows, -1],
+          f"sequence numbers {[int(got[s, -1]) for s in slots]} in slots {slots}")
+    report = {"name": "stamp", "rows": rows, "stride": stride, "max_abs_err": 0}
+    report["ms"] = time_ms(lambda: st.stamp(ring, seq, 1, False))
+    report["device_ms"] = device_ms(lambda: st.stamp(ring, seq, 1, False))
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        st.stamp_plain(plain_ring, plain_seq, 1, False)
+    report["plain_ms"] = (time.perf_counter() - t0) * 1e3 / REPS
+    report["bound_ms"], report["bound_by"] = bound(3 * 8, 0)  # the counter read, a time and a sequence number
+    print("compare " + json.dumps(report), flush=True)
+    return report
+
+
 def phase_bench(device):
     """A main path: ``python -m syzygy_tpu_torch.bench``'s ``measure_scene``
     on its three scenes (the default scene with the sun animated, the
@@ -1652,7 +1703,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         import syzygy_tpu_torch
-        from syzygy_tpu_torch.kernels import build
+        from syzygy_tpu_torch.kernels import build, stamp
     except ImportError as e:
         print(f"FAIL: the syzygy_tpu_torch package is not beside this script ({e})", file=sys.stderr)
         return 1
@@ -1676,6 +1727,16 @@ def main() -> int:
         print(f"phase {name}: {seconds[name]:.2f} s", flush=True)
         return out
 
+    stamp_launches = {}
+
+    def main_path(name, fn, *args, **kwargs):
+        """``timed``, with the stamp launches of the replays it runs."""
+        stamp.LAUNCHES.reset()
+        out = timed(name, fn, *args, **kwargs)
+        stamp_launches[name] = stamp.LAUNCHES.stamp
+        print(f"phase {name}: {stamp_launches[name]} stamp launches", flush=True)
+        return out
+
     try:
         timed("build", build.build)
         for name in build.SOURCES:
@@ -1683,21 +1744,23 @@ def main() -> int:
         timed("native", phase_native)
         compare = timed("compare_raster", phase_compare_raster, device)
         gather_report = timed("compare_gather", phase_compare_gather, device)[0]
+        stamp_report = timed("compare_stamp", phase_compare_stamp, device)
         scene, library = default_scene()
         scene.tick(0.0)
-        default_frames = timed("frames_default", phase_frames, "default", scene, library, device, n_frames=4,
-                               dt_seconds=20.0)
+        default_frames = main_path("frames_default", phase_frames, "default", scene, library, device, n_frames=4,
+                                   dt_seconds=20.0)
         chess, chess_lib = flagship()
-        flagship_frames = timed("frames_flagship", phase_frames, "flagship", chess, chess_lib, device, n_frames=3)
-        bench_report = timed("bench", phase_bench, device)
-        dispatch_report = timed("dispatch", phase_dispatch, device)
-        exact_frames = timed("flagship_1080p", phase_flagship_1080p, device)
+        flagship_frames = main_path("frames_flagship", phase_frames, "flagship", chess, chess_lib, device,
+                                    n_frames=3)
+        bench_report = main_path("bench", phase_bench, device)
+        dispatch_report = main_path("dispatch", phase_dispatch, device)
+        exact_frames = main_path("flagship_1080p", phase_flagship_1080p, device)
         gather_launches = timed("gather_bench", phase_gather_bench)
         timed("golden", phase_golden, device)
         timed("flagship_golden", phase_flagship_golden, device)
         timed("feature_frames", phase_feature_frames, device)
-        app_report = timed("app", phase_app, device)
-        viewer_report = timed("viewer", phase_viewer, device)
+        app_report = main_path("app", phase_app, device)
+        viewer_report = main_path("viewer", phase_viewer, device)
         sharded_report = timed("sharded", phase_sharded, device)
     except (SmokeFailure, RuntimeError, ValueError, IndexError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
@@ -1753,6 +1816,13 @@ def main() -> int:
             "max_abs_err": gather_report["max_abs_err"], "ms": gather_report["ms"],
             "plain_ms": gather_report["plain_ms"], "bound_ms": gather_report["bound_ms"],
             "bound_by": gather_report["bound_by"], "library_ms": gather_report["library_ms"],
+        },
+        {
+            "name": "stamp", "route": "cuda", "source": "syzygy_tpu_torch/csrc/stamp.cu",
+            "replaces": None, "launches": sum(stamp_launches.values()),
+            "max_abs_err": stamp_report["max_abs_err"], "ms": stamp_report["ms"],
+            "plain_ms": stamp_report["plain_ms"], "bound_ms": stamp_report["bound_ms"],
+            "bound_by": stamp_report["bound_by"], "library_ms": None,
         },
     ]
     if any(k["launches"] < 1 for k in kernels):

@@ -1,0 +1,11 @@
+"""Program counter: the device time of the frame's ``aerial_lut`` layer
+(the t_seg rows, the aerial LUT and the f16 sampling copies), from the
+two stamps the port's CUDA graph writes around it on every replay; mean
+over the counted frames before the profiler started (layer:
+renderer.frame), ms."""
+
+from frame_bench.layers import layer_ms
+
+
+def read(run):
+    return layer_ms(run, "aerial_lut")

@@ -29,6 +29,7 @@ SOURCES = {
     # must contract nothing else
     "raster": ("--fmad=false",),
     "gather": (),
+    "stamp": (),
 }
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # source name -> {entry point: (argtypes, restype)}
@@ -38,6 +39,8 @@ ENTRY_POINTS = {
     "raster": {"szg_raster": ([_P, _P, _I] + [_P] * 3 + [_I] * 6 + [_P] * 4 + [_I, _P], _I)},
     # table, table_n, idx, out, n, device, stream
     "gather": {"szg_lane_gather": ([_P, _LL, _P, _P, _LL, _I, _P], _I)},
+    # ring, seq, rows, stride, mark, last, device, stream | stream, nodes
+    "stamp": {"szg_stamp": ([_P, _P] + [_I] * 5 + [_P], _I), "szg_capture_nodes": ([_P, _P], _I)},
 }
 _COMMON = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")

@@ -24,6 +24,10 @@ config) after one eager frame; :func:`render_frame_eager` and
 :func:`render_frame_rows` (which may hold collectives) stay eager, as does
 every CPU frame.
 
+The frame runs as eight contiguous layers (``renderer/layers.py``), each
+a profiler range; a captured graph holds a stamp at every layer boundary,
+so each replay writes its layers' device times (:func:`captured_frames`).
+
 The TPU-only structure of the reference (three jitted programs, the
 68-row ``lax.map`` sky chunks that dodge a TPU compiler crash, quad/joint
 atlas packing, PCF segment tables) has no counterpart here; the storage
@@ -63,6 +67,7 @@ from syzygy_tpu_torch.kernels.sky import (
 )
 from syzygy_tpu_torch.kernels.transfer import oetf_pure_gamma, oetf_srgb
 from syzygy_tpu_torch.math.geometry import matmul4, matvec
+from syzygy_tpu_torch.renderer.layers import FrameTrace, layer, recording
 from syzygy_tpu_torch.scene.lights import MAX_SPOT_LIGHTS
 from syzygy_tpu_torch.scene.pack import (
     FrameParams,
@@ -241,33 +246,36 @@ def _geometry(
     proj_view); the last feeds the shading stage. ``group``
     splits the shadow rasters and, with ``config.shard_triangle_setup``,
     the camera setup and the resolve records over its ranks."""
-    state = prepare_frame_state(params)
-    cam = state.camera
-    proj_view = matmul4(cam.projection, cam.view)
-    clip, world = transform_positions(
-        geometry.positions, geometry.vert_instance, state.models, proj_view
-    )
-    world_normals = transform_normals(
-        geometry.normals, geometry.vert_instance, state.model_inv_transpose
-    )
-    activity = light_activity(
-        state.directional_lights, state.directional_count, state.directional_skip_count,
-        state.spot_lights, state.spot_count, config.shadowless_strength_eps,
-        config.n_shadow_maps,
-    )
-    world_h = torch.cat([world, torch.ones_like(world[:, :1])], dim=-1)
-    shadow_maps = _shadow_pass(geometry, world_h, state, config, activity.shadow_maps, group)
+    with layer("state"):
+        state = prepare_frame_state(params)
+        cam = state.camera
+        proj_view = matmul4(cam.projection, cam.view)
+        clip, world = transform_positions(
+            geometry.positions, geometry.vert_instance, state.models, proj_view
+        )
+        world_normals = transform_normals(
+            geometry.normals, geometry.vert_instance, state.model_inv_transpose
+        )
+        activity = light_activity(
+            state.directional_lights, state.directional_count, state.directional_skip_count,
+            state.spot_lights, state.spot_count, config.shadowless_strength_eps,
+            config.n_shadow_maps,
+        )
+        world_h = torch.cat([world, torch.ones_like(world[:, :1])], dim=-1)
+    with layer("shadow"):
+        shadow_maps = _shadow_pass(geometry, world_h, state, config, activity.shadow_maps, group)
     setup_group = group if config.shard_triangle_setup else None
 
-    setup = setup_triangles(
-        clip, geometry.triangles, geometry.tri_valid,
-        config.render_width, config.render_height,
-        cull_keep_sign=+1,  # back-face cull, CW front (deferred.cpp:503-713)
-        grid_width=config.padded_width, grid_height=local_rows, grid_origin=(row0, 0),
-        group=setup_group,
-    )
-    vis = rasterize(setup, config.padded_width, local_rows, origin=(row0, 0), capacity=config.tile_list_capacity)
-    gbuffer = resolve_gbuffer(vis, setup, geometry, world, world_normals, group=setup_group)
+    with layer("gbuffer"):
+        setup = setup_triangles(
+            clip, geometry.triangles, geometry.tri_valid,
+            config.render_width, config.render_height,
+            cull_keep_sign=+1,  # back-face cull, CW front (deferred.cpp:503-713)
+            grid_width=config.padded_width, grid_height=local_rows, grid_origin=(row0, 0),
+            group=setup_group,
+        )
+        vis = rasterize(setup, config.padded_width, local_rows, origin=(row0, 0), capacity=config.tile_list_capacity)
+        gbuffer = resolve_gbuffer(vis, setup, geometry, world, world_normals, group=setup_group)
     return state, vis, gbuffer, shadow_maps, proj_view
 
 
@@ -298,27 +306,29 @@ def render_frame_linear(
     state, vis, gbuffer, shadow_maps, proj_view = _geometry(
         geometry, params, config, row0, local_rows, group
     )
-    sun_shadow = None
-    if config.share_sun_pcf and config.render_atmosphere:
-        sun_shadow = _sun_pcf(state, gbuffer, shadow_maps, config)
-    color = torch.clamp(
-        deferred_lighting(
-            gbuffer, state.camera, state.directional_lights, state.directional_count,
-            state.directional_skip_count, state.spot_lights, state.spot_count, shadow_maps,
-            shadowless_eps=config.shadowless_strength_eps, sun_shadow=sun_shadow, **_pcf_flags(config),
-        ),
-        0.0,
-        1.0,
-    )
+    with layer("lighting"):
+        sun_shadow = None
+        if config.share_sun_pcf and config.render_atmosphere:
+            sun_shadow = _sun_pcf(state, gbuffer, shadow_maps, config)
+        color = torch.clamp(
+            deferred_lighting(
+                gbuffer, state.camera, state.directional_lights, state.directional_count,
+                state.directional_skip_count, state.spot_lights, state.spot_count, shadow_maps,
+                shadowless_eps=config.shadowless_strength_eps, sun_shadow=sun_shadow, **_pcf_flags(config),
+            ),
+            0.0,
+            1.0,
+        )
     if config.render_atmosphere:
         color = _sky(state, color, vis.depth, gbuffer, shadow_maps, config, row0, sun_shadow)
     if config.debug_lines:
         # the reference hands the overlay (width, height), not the render
         # extent, also under supersample > 1 (frame.py:1068): reproduced
-        color = draw_lines(
-            color, vis.depth, state.debug_segments, state.debug_valid, proj_view,
-            (config.width, config.height),
-        )
+        with layer("encode"):
+            color = draw_lines(
+                color, vis.depth, state.debug_segments, state.debug_valid, proj_view,
+                (config.width, config.height),
+            )
     return color
 
 
@@ -347,38 +357,43 @@ def _sky(state, lit, depth, gbuffer, shadow_maps, config: RenderConfig, row0: in
     the pass samples f16 copies of the transmittance LUT and the aerial
     volume, widened to f32 before filtering (``frame.py:938-955``)."""
     atmo, cam = state.atmosphere, state.camera
-    t_lut = compute_transmittance_lut(atmo, config.transmittance_width, config.transmittance_height)
-    zero = torch.zeros_like(atmo.planet_radius_mm)
-    origin_mm = cam.position[:3] / METERS_PER_MM * constant(
-        [1.0, -1.0, 1.0], F32, zero.device
-    ) + torch.stack([zero, atmo.planet_radius_mm, zero])
-    sky_arr = compute_skyview_lut(
-        atmo, origin_mm, t_lut, config.skyview_width, config.skyview_height, fast=config.fast_sky
-    )
-    if config.skyview_q8:
-        sky_lut = pack_lut_q8(sky_arr)
-    else:
-        sky_lut = sky_arr.to(torch.float16) if config.skyview_f16 else sky_arr
+    with layer("skyview_lut"):
+        t_lut = compute_transmittance_lut(atmo, config.transmittance_width, config.transmittance_height)
+        zero = torch.zeros_like(atmo.planet_radius_mm)
+        origin_mm = cam.position[:3] / METERS_PER_MM * constant(
+            [1.0, -1.0, 1.0], F32, zero.device
+        ) + torch.stack([zero, atmo.planet_radius_mm, zero])
+        sky_arr = compute_skyview_lut(
+            atmo, origin_mm, t_lut, config.skyview_width, config.skyview_height, fast=config.fast_sky
+        )
+        if config.skyview_q8:
+            sky_lut = pack_lut_q8(sky_arr)
+        else:
+            sky_lut = sky_arr.to(torch.float16) if config.skyview_f16 else sky_arr
     tseg = aerial = None
     t_max_mm = config.aerial_lut_far_m / METERS_PER_MM
-    if config.aerial_lut:
-        if config.skyview_tseg:
-            tseg = pack_tseg_rows(compute_skyview_tseg(atmo, t_lut, origin_mm, config.skyview_height))
-        aerial = build_aerial_lut(atmo, t_lut, cam, origin_mm, t_max_mm)
-    if config.lut_f16:
-        t_lut = _f16_copy(t_lut)
-        if aerial is not None:
-            aerial = aerial._replace(volume=_f16_copy(aerial.volume))
-    sun = type(state.directional_lights)(*[x[0] for x in state.directional_lights])
-    color = sky_camera_pass(
-        lit, depth, gbuffer, cam, atmo, t_lut, sky_lut, sun, shadow_maps[0],
-        draw_extent=(config.render_width, config.render_height),
-        aerial=aerial, aerial_t_max=t_max_mm, tseg_rows=tseg,
-        metallic_reflection=config.metallic_reflection,
-        row_origin=row0, fast=config.fast_sky, fast_reflection=config.fast_sky_reflection,
-        sun_shadow=sun_shadow, **_pcf_flags(config),
-    )
-    return torch.clamp(color, 0.0, 1.0)
+    # without the aerial LUT, the f16 copy of the transmittance LUT counts
+    # as the sky pass, as do the per-pixel integrals
+    with layer("aerial_lut" if config.aerial_lut else "sky_pass"):
+        if config.aerial_lut:
+            if config.skyview_tseg:
+                tseg = pack_tseg_rows(compute_skyview_tseg(atmo, t_lut, origin_mm, config.skyview_height))
+            aerial = build_aerial_lut(atmo, t_lut, cam, origin_mm, t_max_mm)
+        if config.lut_f16:
+            t_lut = _f16_copy(t_lut)
+            if aerial is not None:
+                aerial = aerial._replace(volume=_f16_copy(aerial.volume))
+    with layer("sky_pass"):
+        sun = type(state.directional_lights)(*[x[0] for x in state.directional_lights])
+        color = sky_camera_pass(
+            lit, depth, gbuffer, cam, atmo, t_lut, sky_lut, sun, shadow_maps[0],
+            draw_extent=(config.render_width, config.render_height),
+            aerial=aerial, aerial_t_max=t_max_mm, tseg_rows=tseg,
+            metallic_reflection=config.metallic_reflection,
+            row_origin=row0, fast=config.fast_sky, fast_reflection=config.fast_sky_reflection,
+            sun_shadow=sun_shadow, **_pcf_flags(config),
+        )
+        return torch.clamp(color, 0.0, 1.0)
 
 
 def _f16_copy(table):
@@ -389,12 +404,13 @@ def _f16_copy(table):
 
 def _encode(color, config: RenderConfig):
     """Supersample box filter, then the OETF (``frame.py:1070-1079``)."""
-    ss = config.supersample
-    if ss > 1:
-        h = (color.shape[0] // ss) * ss
-        w = (config.render_width // ss) * ss
-        color = color[:h, :w].reshape(h // ss, ss, w // ss, ss, 3).mean(dim=(1, 3))
-    return oetf_srgb(color) if config.oetf == "srgb" else oetf_pure_gamma(color)
+    with layer("encode"):
+        ss = config.supersample
+        if ss > 1:
+            h = (color.shape[0] // ss) * ss
+            w = (config.render_width // ss) * ss
+            color = color[:h, :w].reshape(h // ss, ss, w // ss, ss, 3).mean(dim=(1, 3))
+        return oetf_srgb(color) if config.oetf == "srgb" else oetf_pure_gamma(color)
 
 
 def render_frame_eager(geometry: GeometryStatic, params: FrameParams, config: RenderConfig):
@@ -436,7 +452,12 @@ def render_frame_packed(geometry: GeometryStatic, buffer, spec: FrameParamSpec, 
     frame replays from the CUDA graph of (geometry, spec, config),
     captured at the first call after one eager warm-up frame (which that
     call returns). The returned image is the caller's: later frames do not
-    overwrite it. A failed capture or replay raises."""
+    overwrite it. A failed capture or replay raises.
+
+    Each replay's host spans ``stage`` (the copy into the graph's row,
+    its wait on the ring slot included) and ``replay`` (the graph's
+    launch), and its layer stamps, are kept by its graph
+    (:func:`captured_frames`)."""
     device = geometry.positions.device
     if device.type != "cuda":
         buffer = buffer.to(device) if isinstance(buffer, torch.Tensor) else to_tensor(buffer, device)
@@ -453,8 +474,7 @@ def render_frame_packed(geometry: GeometryStatic, buffer, spec: FrameParamSpec, 
             _GRAPHS.popitem(last=False)
         return image
     _GRAPHS.move_to_end(key)
-    _stage(buffer, graph.row)
-    return graph.replay()
+    return graph.replay(buffer)
 
 
 GRAPH_CACHE_SIZE = 4  # captured frames kept, least recently used out first
@@ -463,9 +483,11 @@ STAGING_SLOTS = 2  # pinned rows per (device, size): a row in flight is never ov
 
 class _FrameGraph:
     """One frame captured as a CUDA graph: its static input row, its
-    output, the raster launches it holds, and what its capture took."""
+    output, the raster launches it holds, what its capture took, and its
+    :class:`layers.FrameTrace` (layer stamps in the graph, node counts,
+    each replay's host spans)."""
 
-    def __init__(self, graph, geometry, row, output, launches, capture_s, pool_bytes):
+    def __init__(self, graph, geometry, row, output, launches, capture_s, pool_bytes, trace):
         self.graph = graph
         self.geometry = geometry  # the graph reads its tensors: keep them alive
         self.row = row
@@ -473,16 +495,19 @@ class _FrameGraph:
         self.launches = launches
         self.capture_s = capture_s
         self.pool_bytes = pool_bytes
+        self.trace = trace
 
     @classmethod
     def capture(cls, geometry, row, spec, config):
         """One eager frame on the capture stream (it builds the kernels,
         makes the device constants and fills the allocator), then the
-        frame captured from the same stream into a pool of its own.
-        Returns the graph and the eager frame."""
+        frame captured from the same stream into a pool of its own, its
+        layers stamped into the graph. Returns the graph and the eager
+        frame."""
         device = row.device
         stream = _capture_stream(device)
         current = torch.cuda.current_stream(device)
+        trace = FrameTrace(device)  # on the stream that replays, outside the pool
         stream.wait_stream(current)
         with torch.no_grad(), torch.cuda.stream(stream):
             image = render_frame_eager(geometry, unflatten_frame_params(spec, row), config)
@@ -492,7 +517,8 @@ class _FrameGraph:
             graph = torch.cuda.CUDAGraph()
             graph.capture_begin(capture_error_mode="thread_local")
             try:
-                output = render_frame_eager(geometry, unflatten_frame_params(spec, row), config)
+                with recording(trace):
+                    output = render_frame_eager(geometry, unflatten_frame_params(spec, row), config)
             finally:
                 graph.capture_end()
                 held = {k: v - counts[k] for k, v in LAUNCHES.snapshot().items()}
@@ -501,10 +527,16 @@ class _FrameGraph:
         current.wait_stream(stream)
         image.record_stream(current)
         pool = torch.cuda.memory_reserved(device) - reserved
-        return cls(graph, geometry, row, output, held, capture_s, pool), image
+        return cls(graph, geometry, row, output, held, capture_s, pool, trace), image
 
-    def replay(self):
+    def replay(self, buffer):
+        """Stage ``buffer`` into the row and replay; keeps the host spans."""
+        t0 = time.perf_counter()
+        _stage(buffer, self.row)
+        t1 = time.perf_counter()
         self.graph.replay()
+        t2 = time.perf_counter()
+        self.trace.replayed((t0, t1), (t1, t2))
         LAUNCHES.add(self.launches)
         return self.output.clone()
 
@@ -549,9 +581,17 @@ def _stage(buffer, row: torch.Tensor) -> None:
 def captured_frames() -> list[dict]:
     """What each cached CUDA graph holds: its config, the host seconds
     its capture took, the bytes its capture added to the device's
-    reserved memory (its pool) and its raster launches."""
+    reserved memory (its pool), its raster launches, its ``layers`` in
+    frame order, its ``nodes`` (each layer's, ``stamps`` and ``total``),
+    its ``replays`` so far, and ``read``: a function that returns the
+    finished replays' :class:`layers.Replay` records (layer device ms,
+    host stage and replay ms), oldest first, once the frames are done."""
     return [
-        {"config": key[2], "capture_s": g.capture_s, "pool_bytes": g.pool_bytes, "launches": g.launches}
+        {
+            "config": key[2], "capture_s": g.capture_s, "pool_bytes": g.pool_bytes, "launches": g.launches,
+            "layers": list(g.trace.layers), "nodes": g.trace.nodes, "replays": g.trace.replays,
+            "read": g.trace.read,
+        }
         for key, g in _GRAPHS.items()
     ]
 

@@ -137,7 +137,7 @@ out=""; prev=""
 for a in "$@"; do
   if [ "$prev" = "-o" ]; then out="$a"; fi
   prev="$a"
-  case "$a" in *gather.cu) src=gather ;; *raster.cu) src=raster ;; esac
+  case "$a" in *gather.cu) src=gather ;; *raster.cu) src=raster ;; *stamp.cu) src=stamp ;; esac
 done
 echo "$src" >> "$CALLS"
 if [ "$src" = "$FAIL_ON" ]; then echo "error: refused" >&2; exit 2; fi
@@ -174,7 +174,8 @@ def test_build_compiles_each_source_once(tmp_path, monkeypatch):
     monkeypatch.setenv("FAIL_ON", "gather")
     with pytest.raises(RuntimeError, match="csrc/gather.cu"):
         build.build()
-    assert sorted(p.name.split("_")[1] for p in (tmp_path / "build2").iterdir()) == ["raster", "raster"]
+    built = sorted(p.name.split("_")[1] for p in (tmp_path / "build2").iterdir())
+    assert built == ["raster", "raster", "stamp", "stamp"]
 
 
 def test_load_binds_entry_points_once(monkeypatch):
@@ -185,7 +186,7 @@ def test_load_binds_entry_points_once(monkeypatch):
     class Lib:
         def __init__(self, path):
             self.path = path
-            for entry in ("szg_raster", "szg_lane_gather"):
+            for entry in ("szg_raster", "szg_lane_gather", "szg_stamp", "szg_capture_nodes"):
                 setattr(self, entry, type("Fn", (), {})())
 
     monkeypatch.setattr(build, "build", lambda name: {name: f"/lib/{name}.so"})
@@ -202,6 +203,9 @@ def test_load_binds_entry_points_once(monkeypatch):
     assert raster_args.count(ctypes.c_void_p) == 10 and len(raster_args) == 18
     gather_args, _ = build.ENTRY_POINTS["gather"]["szg_lane_gather"]
     assert gather_args.count(ctypes.c_void_p) == 4 and gather_args.count(ctypes.c_longlong) == 2
+    stamp_args, _ = build.ENTRY_POINTS["stamp"]["szg_stamp"]
+    assert stamp_args.count(ctypes.c_void_p) == 3 and len(stamp_args) == 8
+    assert build.ENTRY_POINTS["stamp"]["szg_capture_nodes"][0] == [ctypes.c_void_p] * 2
 
 
 # --- the kernel's design rules, on the CPU ----------------------------------
