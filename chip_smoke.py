@@ -10,7 +10,8 @@ no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``syzygy_tpu_torch/csrc/*.cu`` (the raster,
-   the lane gather and the layer stamp, one ``nvcc`` each, concurrently), with ptxas's
+   the lighting, the lane gather and the layer stamp, one ``nvcc`` each,
+   concurrently), with ptxas's
    register report; then the C++ host core (``syzygy_tpu_torch/native.py``
    builds ``csrc/szg_native.cpp`` with ``g++``), which must load, and
    ``Scene.shadow_bounds`` through it on 40 seeded rotated-caster versions
@@ -31,10 +32,17 @@ no result line):
    the flagship camera's rows [512, 1088) as a block at a non-zero origin,
    visibility and depth-only; the layer stamp on a ring of the main path's
    shape (4096 x 10) across its wrap, its sequence column and counter
-   exactly ``stamp_plain``'s on a copy, its times in mark order;
+   exactly ``stamp_plain``'s on a copy, its times in mark order; the
+   deferred lighting (``csrc/lighting.cu``) against
+   ``deferred_lighting_plain`` at the cells' settings (1920x1088, 8192^2
+   maps) on the default scene with its sun animated and the chess
+   flagship, with all 2 + 16 light slots live, and the chess and
+   all-slots cases again on ``pcf_q8`` maps of 2048 texels, each with the
+   slots it evaluated, the kernel's device time and the whole call's,
+   beside the plain version and its bytes bound;
 4. the main paths, each with the launch counters set to 0 just before and
-   read just after (the stamps' too: each replay launches the stamps its
-   graph holds): 4 frames of the default scene and 3 of the chess
+   read just after (the stamps' and the lighting's too: each replay
+   launches the stamps and the lighting its graph holds): 4 frames of the default scene and 3 of the chess
    flagship through ``renderer.frame.render_frame`` at the default
    1920x1080 RenderConfig (CUDA-event ms/frame, peak memory); the chess
    flagship at 1920x1080 in the quirk-exact configuration of
@@ -184,12 +192,13 @@ def time_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = REPS) -> float:
+def device_ms(fn, reps: int = REPS, kernel: str | None = None) -> float:
     """Mean summed device time (ms) of the kernels ``fn`` launches, from
     ``torch.profiler``'s CUDA activity over ``reps`` calls: the kernels
-    alone, without the host's time between launches. A trace that comes
-    back without kernel events (the tracer dropped them) is taken again,
-    up to ``TRACE_ATTEMPTS`` times."""
+    alone, without the host's time between launches; with ``kernel``,
+    only those whose name holds it. A trace that comes back without such
+    kernel events (the tracer dropped them) is taken again, up to
+    ``TRACE_ATTEMPTS`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -199,7 +208,8 @@ def device_ms(fn, reps: int = REPS) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and (kernel is None or kernel in e.name)]
         if kernels:
             return sum(e.time_range.elapsed_us() for e in kernels) / 1000.0 / reps
     raise SmokeFailure(f"the profiler saw no kernel in {TRACE_ATTEMPTS} traces")
@@ -984,6 +994,96 @@ def arithmetic_probe(device, n=1 << 20) -> dict:
     return out
 
 
+LIGHTING_PLAIN_REPS = 3  # the plain lighting's calls per timing (~100 ms and ~12,000 kernels each)
+LIT_BYTES_PER_PIXEL = 5 * 16  # a lit pixel reads five (H, W, 4) f32 G-buffer texels
+BACKGROUND_BYTES_PER_PIXEL = 16  # a background pixel reads its diffuse texel alone
+LIGHT_BYTES_PER_PIXEL = 3 * 4  # every pixel writes its (H, W, 3) f32 output
+LIGHTING_CASES = (  # name, scene, shadow_dim, pcf_q8, every slot live
+    ("editor", "editor", 8192, False, False),
+    ("chess", "chess", 8192, False, False),
+    ("all_slots", "editor", 8192, False, True),
+    ("chess_q8", "chess", 2048, True, False),
+    ("all_slots_q8", "editor", 2048, True, True),
+)
+
+
+def lighting_bytes(pixels: int, lit: int, live: int, q8: bool) -> int:
+    """A lower bound on the lighting kernel's bytes: each lit pixel's five
+    G-buffer texels, each background pixel's diffuse texel, every pixel's
+    output, and one map texel (4 B; a 2 B code for q8) for each live slot
+    and lit pixel."""
+    texel = 2 if q8 else 4
+    return lit * LIT_BYTES_PER_PIXEL + (pixels - lit) * BACKGROUND_BYTES_PER_PIXEL + pixels * LIGHT_BYTES_PER_PIXEL \
+        + lit * live * texel
+
+
+def phase_compare_lighting(device):
+    """The lighting kernel (``csrc/lighting.cu``) vs
+    ``deferred_lighting_plain`` on the card, bitwise, at 1920x1088 with
+    the shadowless gate of the default config: the cells' settings
+    (8192^2 maps read in f32) on the editor's default scene with its sun
+    animated and on the chess flagship, every one of the 2 + 16 slots
+    live (``bench.all_slots_live``, gate off), and those of the chess and
+    all-slots cases again with ``pcf_q8`` maps of 2048 texels. Each case:
+    the slots the kernel evaluated (its mask, ``kernels.lighting.
+    evaluated_slots``) against the live masks; the kernel's own device
+    time (``ms``), the whole call (the masks' and tables' prologue
+    included) by CUDA events and on the device; the plain version
+    likewise; the bytes bound (:func:`lighting_bytes` at the HBM rate)."""
+    from syzygy_tpu_torch.bench import all_slots_live, chess_scene, default_scene_animated
+    from syzygy_tpu_torch.kernels import lighting as L
+    from syzygy_tpu_torch.renderer.frame import RenderConfig, _geometry
+    from syzygy_tpu_torch.scene.pack import pack_frame_params, pack_geometry, upload_frame_params
+
+    reports = []
+    for name, scene_name, dim, q8, every in LIGHTING_CASES:
+        scene, library = chess_scene() if scene_name == "chess" else default_scene_animated()
+        eps = 0.0 if every else RenderConfig().shadowless_strength_eps
+        config = RenderConfig(width=1920, height=1080, shadow_dim=dim, pcf_q8=q8, shadowless_strength_eps=eps)
+        geometry = pack_geometry(scene, library, device)
+        params = upload_frame_params(pack_frame_params(scene, config.width / config.height), device)
+        with torch.no_grad():
+            state, _, gbuffer, maps, _ = _geometry(geometry, params, config, 0, config.padded_height)
+            lights = dict(
+                directional=state.directional_lights, directional_count=state.directional_count,
+                directional_skip=state.directional_skip_count, spots=state.spot_lights, spot_count=state.spot_count,
+            )
+            if every:
+                lights, maps = all_slots_live(state, maps)
+            args = (gbuffer, state.camera, *lights.values(), maps)
+            flags = dict(pcf_f16=config.pcf_f16, pcf_q8=q8, shadowless_eps=eps)
+            L.LAUNCHES.reset()
+            kern = L.deferred_lighting(*args, **flags)
+            launches = L.LAUNCHES.lighting
+            plain = L.deferred_lighting_plain(*args, **flags)
+            torch.cuda.synchronize()
+            differ = int((kern != plain).any(dim=-1).sum())
+            check(differ == 0, f"lighting ({name}) differs from its plain version at {differ} pixels")
+            check(launches == 1, f"lighting ({name}) launched {launches} kernels, not 1")
+            activity = L.light_activity(*lights.values(), eps, maps.shape[0])
+            live = int(activity.shadowed_dirs.sum() + activity.unshadowed_dirs.sum() + activity.spots.sum())
+            slots = L.evaluated_slots(L.last_slot_mask(device))
+            check(slots == live, f"lighting ({name}) evaluated {slots} slots, {live} are live")
+            rows, width = gbuffer.diffuse.shape[:2]
+            lit = int((gbuffer.diffuse[..., 3] >= 1.0).sum())
+
+            def call():
+                L.deferred_lighting(*args, **flags)
+
+            report = {"name": f"lighting_{name}", "shape": [rows, width], "shadow_dim": dim, "q8": q8,
+                      "slots": slots, "lit_pixels": lit, "max_abs_err": 0.0, "bitwise": True, "launches": launches,
+                      "ms": device_ms(call, kernel="lighting_kernel"), "call_ms": time_ms(call),
+                      "call_device_ms": device_ms(call)}
+            report["plain_ms"] = time_ms(lambda: L.deferred_lighting_plain(*args, **flags), LIGHTING_PLAIN_REPS)
+            report["plain_device_ms"] = device_ms(lambda: L.deferred_lighting_plain(*args, **flags), LIGHTING_PLAIN_REPS)
+            report["bound_ms"], report["bound_by"] = bound(lighting_bytes(rows * width, lit, live, q8), 0)
+        print("compare " + json.dumps(report), flush=True)
+        reports.append(report)
+        del state, gbuffer, maps, kern, plain, args, lights, activity
+        torch.cuda.empty_cache()
+    return reports
+
+
 BENCH_FRAMES, BENCH_GROUP = 8, 4  # timed frames per scene and frames per group in phase_bench
 
 
@@ -1703,7 +1803,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         import syzygy_tpu_torch
-        from syzygy_tpu_torch.kernels import build, stamp
+        from syzygy_tpu_torch.kernels import build, lighting, stamp
     except ImportError as e:
         print(f"FAIL: the syzygy_tpu_torch package is not beside this script ({e})", file=sys.stderr)
         return 1
@@ -1727,14 +1827,18 @@ def main() -> int:
         print(f"phase {name}: {seconds[name]:.2f} s", flush=True)
         return out
 
-    stamp_launches = {}
+    stamp_launches, lighting_launches = {}, {}
 
     def main_path(name, fn, *args, **kwargs):
-        """``timed``, with the stamp launches of the replays it runs."""
+        """``timed``, with the stamp and lighting launches of the frames it
+        runs (a replay launches those its graph holds)."""
         stamp.LAUNCHES.reset()
+        lighting.LAUNCHES.reset()
         out = timed(name, fn, *args, **kwargs)
         stamp_launches[name] = stamp.LAUNCHES.stamp
-        print(f"phase {name}: {stamp_launches[name]} stamp launches", flush=True)
+        lighting_launches[name] = lighting.LAUNCHES.lighting
+        print(f"phase {name}: {stamp_launches[name]} stamp launches, {lighting_launches[name]} lighting launches",
+              flush=True)
         return out
 
     try:
@@ -1745,6 +1849,7 @@ def main() -> int:
         compare = timed("compare_raster", phase_compare_raster, device)
         gather_report = timed("compare_gather", phase_compare_gather, device)[0]
         stamp_report = timed("compare_stamp", phase_compare_stamp, device)
+        lighting_reports = timed("compare_lighting", phase_compare_lighting, device)
         scene, library = default_scene()
         scene.tick(0.0)
         default_frames = main_path("frames_default", phase_frames, "default", scene, library, device, n_frames=4,
@@ -1823,6 +1928,14 @@ def main() -> int:
             "max_abs_err": stamp_report["max_abs_err"], "ms": stamp_report["ms"],
             "plain_ms": stamp_report["plain_ms"], "bound_ms": stamp_report["bound_ms"],
             "bound_by": stamp_report["bound_by"], "library_ms": None,
+        },
+        {
+            "name": "lighting", "route": "cuda", "source": "syzygy_tpu_torch/csrc/lighting.cu",
+            "replaces": None, "launches": sum(lighting_launches.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in lighting_reports), "ms": lighting_reports[0]["ms"],
+            "plain_ms": lighting_reports[0]["plain_ms"], "bound_ms": lighting_reports[0]["bound_ms"],
+            "bound_by": lighting_reports[0]["bound_by"], "library_ms": None,
+            "cases": [{k: r[k] for k in ("name", "slots", "ms", "plain_ms", "bound_ms")} for r in lighting_reports],
         },
     ]
     if any(k["launches"] < 1 for k in kernels):

@@ -98,6 +98,36 @@ def chess_scene():
     return scene, library
 
 
+def all_slots_live(state, maps):
+    """Every light slot of a frame of :func:`default_scene_animated` live:
+    both directional lights (strengths 2 and 1) and 16 spots, the scene's
+    spot moved and turned 16 seeded ways with strengths 0.5-3, each spot
+    slot given one of the first three slots' maps. ``state`` and ``maps``
+    are the frame's state and shadow maps; returns (lights, maps), the
+    lights keyed as ``deferred_lighting`` takes them."""
+    d, s = state.directional_lights, state.spot_lights
+    dev = maps.device
+    shift = torch.from_numpy(np.random.default_rng(16).uniform(-3.0, 3.0, (16, 3)).astype(np.float32)).to(dev)
+    spots = type(s)(*[x[:1].expand(16, *x.shape[1:]).clone() for x in s])
+    spots = spots._replace(
+        position=torch.cat([spots.position[:, :3] + shift, spots.position[:, 3:]], dim=1),
+        forward=torch.cat([spots.forward[:, :3] + 0.1 * shift, spots.forward[:, 3:]], dim=1),
+        strength=torch.linspace(0.5, 3.0, 16, device=dev),
+    )
+    mixed = maps.clone()
+    for j in range(16):
+        mixed[2 + j] = maps[j % 3]
+
+    def i32(n):
+        return torch.tensor(n, dtype=torch.int32, device=dev)
+
+    lights = dict(
+        directional=d._replace(strength=torch.tensor([2.0, 1.0], device=dev)), directional_count=i32(2),
+        directional_skip=i32(0), spots=spots, spot_count=i32(16),
+    )
+    return lights, mixed
+
+
 def pack_rows(scene, aspect: float, frames: int):
     """(spec, rows): ``frames + 1`` flattened FrameParams rows, (frames + 1,
     spec.total) f32, the scene ticked by 1/60 s between two rows

@@ -28,6 +28,9 @@ SOURCES = {
     # the raster places its fused multiply-adds by hand (__fmaf_rn) and
     # must contract nothing else
     "raster": ("--fmad=false",),
+    # the lighting rounds every operation as the plain version's PyTorch
+    # operations do (__fmul_rn/__fadd_rn) and must contract nothing
+    "lighting": ("--fmad=false",),
     "gather": (),
     "stamp": (),
 }
@@ -37,6 +40,12 @@ ENTRY_POINTS = {
     # coeffs, boxes | n_slots | slots, offsets, overflow | full, tiles_y,
     # tiles_x, oy, ox, depth_only | depth, tri, b0, b1 | device, stream
     "raster": {"szg_raster": ([_P, _P, _I] + [_P] * 3 + [_I] * 6 + [_P] * 4 + [_I, _P], _I)},
+    # diffuse, specular, normal, position, orm, camera, table | shadowed,
+    # unshadowed, spots | n_dir, n_spot, shadowless | maps | size, f16 |
+    # codes, lo, step | n_w | sun_shadow, out, slots | n | device, stream
+    "lighting": {
+        "szg_lighting": ([_P] * 7 + [_P] * 3 + [_I] * 3 + [_P] + [_I] * 2 + [_P] * 3 + [_I] + [_P] * 3 + [_LL, _I, _P], _I),
+    },
     # table, table_n, idx, out, n, device, stream
     "gather": {"szg_lane_gather": ([_P, _LL, _P, _P, _LL, _I, _P], _I)},
     # ring, seq, rows, stride, mark, last, device, stream | stream, nodes

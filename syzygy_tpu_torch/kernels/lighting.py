@@ -9,11 +9,17 @@ rounded to float16 before the compare, as the reference's f16 segment
 tables are, up to 2048 texels (larger maps read f32 there). ``q8=True``
 decodes the reference's u8 block-quantized segments.
 
-Every light slot is evaluated, and each contributes under a mask computed
-on the device (:func:`light_activity`, shared with the shadow pass): the
-frame reads nothing back to the host, and the one form is differentiable
-(autograd reaches the light colors and directions through the masked
-sums; the reference needs its ``unroll=True`` form for that).
+Which light slots contribute is a mask computed on the device
+(:func:`light_activity`, shared with the shadow pass), so the frame reads
+nothing back to the host. :func:`deferred_lighting` takes one of two
+forms by its inputs' device: on CUDA tensors it launches
+``csrc/lighting.cu``, one thread per pixel that evaluates only the live
+slots, bitwise :func:`deferred_lighting_plain`; on the CPU it runs
+:func:`deferred_lighting_plain`, which evaluates every slot and keeps each
+under its mask (autograd reaches the light colors and directions through
+the masked sums; the reference needs its ``unroll=True`` form for that).
+On the card, inputs that need a gradient get the plain version's.
+:data:`LAUNCHES` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from typing import NamedTuple
 import torch
 
 from syzygy_tpu_torch.device import constant
+from syzygy_tpu_torch.kernels import build
+from syzygy_tpu_torch.kernels.raster import LaunchCounts
 from syzygy_tpu_torch.kernels.resolve import GBuffer
 from syzygy_tpu_torch.math.geometry import matmul4, matvec, sqrt_rn, vec_norm, world_up
 from syzygy_tpu_torch.scene.camera import CameraPacked
@@ -172,16 +180,14 @@ def _pcf_taps(size: int, coord, dx, dy, texel):
     return 1.0 - occluded / 25.0
 
 
-def _pcf_q8(shadow_map, coord, dx, dy):
-    """u8 block-scaled PCF segments (``lighting.py:419-489``). Each row of
-    the map, zero-padded by ``PCF_PAD`` on the left, is cut into 16-texel
-    segments at stride 8; a segment stores its taps as u8 fractions of its
-    own depth range against the f16-rounded min and step. A tap row takes
-    the one segment that holds all five of its taps (the reference's
-    coverage bound: dx, dy <= 1) and decodes ``lo + q * step``, rounded
-    after the product and again after the sum as the reference's op-by-op
-    value is. The reference's u32 packing of the codes is its gather
-    layout; the decoded taps are the same."""
+def _q8_segments(shadow_map):
+    """The u8 block-scaled PCF segments of one (size, size) map
+    (``lighting.py:419-489``). Each row of the map, zero-padded by
+    ``PCF_PAD`` on the left, is cut into ``n_w`` 16-texel segments at
+    stride 8; a segment stores its taps as u8 fractions of its own depth
+    range against the f16-rounded min and step. Returns the codes (size *
+    n_w * 16,) as f32 integers, the segments' ``lo16`` and ``step16``
+    (size * n_w,) and ``n_w``."""
     size = shadow_map.shape[-1]
     dev = shadow_map.device
     pad = PCF_PAD
@@ -196,7 +202,19 @@ def _pcf_q8(shadow_map, coord, dx, dy):
     step16 = ((hi - lo) * torch.full((), 1.0 / 255.0, dtype=F32, device=dev)).to(torch.float16).to(F32)
     step = torch.clamp(step16, min=1e-30)
     codes = torch.clamp(torch.round((windows - lo16) / step), 0.0, 255.0).reshape(-1)
-    lo16, step16 = lo16.reshape(-1), step16.reshape(-1)
+    return codes, lo16.reshape(-1), step16.reshape(-1), n_w
+
+
+def _pcf_q8(shadow_map, coord, dx, dy):
+    """PCF over :func:`_q8_segments`. A tap row takes the one segment that
+    holds all five of its taps (the reference's coverage bound: dx, dy <=
+    1) and decodes ``lo + q * step``, rounded after the product and again
+    after the sum as the reference's op-by-op value is. The reference's
+    u32 packing of the codes is its gather layout; the decoded taps are
+    the same."""
+    size = shadow_map.shape[-1]
+    pad = PCF_PAD
+    codes, lo16, step16, n_w = _q8_segments(shadow_map)
 
     start = torch.floor(coord[..., 0] * size).to(torch.int64) - 3 + pad  # leftmost tap, padded
     w = torch.clamp(torch.div(start, 8, rounding_mode="floor"), 0, n_w - 1)
@@ -278,7 +296,7 @@ def _take(light, i):
     return type(light)(*[x[i] for x in light])
 
 
-def deferred_lighting(
+def deferred_lighting_plain(
     gbuffer: GBuffer,
     camera: CameraPacked,
     directional: DirectionalLight,
@@ -296,7 +314,8 @@ def deferred_lighting(
     sun_shadow=None,
 ):
     """``deferred/lights.comp`` main loop -> (H, W, 3) linear color
-    (``lighting.py:528-791``), with the reference's signature. Background
+    (``lighting.py:528-791``), with the reference's signature, in tensor
+    operations over the whole target. Background
     texels (diffuse alpha < 1) stay black. Shadowed directionals
     accumulate first, then the dim ones without PCF (``shadowless_eps``,
     :func:`light_activity`'s gate), then spots — the reference's order.
@@ -358,3 +377,231 @@ def deferred_lighting(
         contribution = _light_contribution(material, view_dir, light_dir, spectral)
         total = torch.where(activity.spots[j], total + contribution, total)
     return torch.where(lit_mask, total, 0.0)
+
+
+class LaunchCount(LaunchCounts):
+    """Lighting kernel launches, counted by :func:`deferred_lighting` where
+    it launches the CUDA kernel and nowhere else (a frame replayed from a
+    CUDA graph adds the launches it holds, ``renderer/frame.py``)."""
+
+    KINDS = ("lighting",)
+
+    def reset(self) -> None:
+        self.lighting = 0
+
+
+LAUNCHES = LaunchCount()
+TABLE_STRIDE = 32  # f32 values per light slot of :func:`light_table` (csrc/lighting.cu)
+MAX_SLOTS = 64  # light slots the kernel's evaluated-slot mask holds
+_LAST_MASK: dict = {}  # device -> the slot mask its last lighting launch writes
+
+
+def light_table(directional: DirectionalLight, spots: SpotLight) -> torch.Tensor:
+    """What the kernel reads of each light slot, (D + S, TABLE_STRIDE) f32
+    on the lights' device, directional slots first: the shadow frame's
+    matrix ``matmul4(_TO_TEX_COORD, matmul4(projection, view))`` (16,
+    row-major), ``_normalize(-forward[:3])``, ``color[:3] * strength``,
+    and for spots ``position[:3]``, ``falloff_factor`` and
+    ``falloff_distance`` (zeros for directional slots). The plain
+    version's functions over all slots at once: each value is bitwise the
+    one :func:`deferred_lighting_plain` computes for its slot."""
+    dev = directional.strength.device
+    n_dir, n_spot = directional.strength.shape[0], spots.strength.shape[0]
+    proj_view = torch.cat([matmul4(directional.projection, directional.view), matmul4(spots.projection, spots.view)])
+    frames = matmul4(constant(_TO_TEX_COORD, F32, dev), proj_view).reshape(-1, 16)
+    forward = torch.cat([directional.forward[:, :3], spots.forward[:, :3]])
+    spectral = torch.cat([
+        directional.color[:, :3] * directional.strength[:, None], spots.color[:, :3] * spots.strength[:, None],
+    ])
+    spot_only = torch.cat([
+        torch.zeros((n_dir, 5), dtype=F32, device=dev),
+        torch.cat([spots.position[:, :3], spots.falloff_factor[:, None], spots.falloff_distance[:, None]], dim=1),
+    ])
+    pad = torch.zeros((n_dir + n_spot, TABLE_STRIDE - 27), dtype=F32, device=dev)
+    return torch.cat([frames, _normalize(-forward), spectral, spot_only, pad], dim=1)
+
+
+def q8_tables(shadow_maps):
+    """Every slot's :func:`_q8_segments`, as the kernel reads them: the
+    codes (D + S, size * n_w * 16) in f16 (integers 0-255, or NaN where
+    the plain version's are, all exact in f16), ``lo16`` and ``step16``
+    (D + S, size * n_w) f32, and ``n_w``; one map at a time, so that the
+    temporaries are one map's."""
+    n_maps, size = shadow_maps.shape[0], shadow_maps.shape[-1]
+    n_w = (size + 2 * PCF_PAD) // 8
+    dev = shadow_maps.device
+    codes = torch.empty((n_maps, size * n_w * 16), dtype=torch.float16, device=dev)
+    lo16 = torch.empty((n_maps, size * n_w), dtype=F32, device=dev)
+    step16 = torch.empty_like(lo16)
+    for m in range(n_maps):
+        codes[m], lo16[m], step16[m], _ = _q8_segments(shadow_maps[m])
+    return codes, lo16, step16, n_w
+
+
+def last_slot_mask(device) -> torch.Tensor | None:
+    """The int64 mask that the last lighting launch on ``device`` writes
+    (bit k: some pixel evaluated light slot k), or None before any launch
+    there. A launch captured into a CUDA graph writes its own mask on
+    every replay (``renderer/frame.py`` keeps it with the graph)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _LAST_MASK.get(device)
+
+
+def evaluated_slots(mask: torch.Tensor | None) -> int | None:
+    """The number of light slots a mask of :func:`last_slot_mask` holds (a
+    host read of one device int64), or None for no mask."""
+    return None if mask is None else bin(int(mask) & (1 << MAX_SLOTS) - 1).count("1")
+
+
+def _pixels(plane: torch.Tensor, shape, what: str) -> torch.Tensor:
+    """A contiguous f32 tensor of ``shape`` that starts on a 16-byte
+    boundary (the kernel reads a G-buffer texel as one float4)."""
+    if plane.dtype != F32 or tuple(plane.shape) != tuple(shape):
+        raise ValueError(f"{what} must be a {tuple(shape)} float32 tensor, got {tuple(plane.shape)} {plane.dtype}")
+    plane = plane.contiguous()
+    return plane.clone() if plane.data_ptr() % 16 else plane
+
+
+def _launch_kernel(gbuffer, camera, directional, spots, shadow_maps, shadowless_eps, activity, f16, q8, sun_shadow):
+    """Launch ``csrc/lighting.cu`` over the G-buffer's (rows, W) pixels,
+    its taps rounded to f16 (``f16``) or decoded from q8 segments
+    (``q8``)."""
+    rows, width = gbuffer.diffuse.shape[:2]
+    dev = shadow_maps.device
+    n_dir, n_spot = directional.strength.shape[0], spots.strength.shape[0]
+    size = shadow_maps.shape[-1]
+    if n_dir + n_spot > MAX_SLOTS:
+        raise ValueError(f"the lighting kernel takes at most {MAX_SLOTS} light slots, got {n_dir + n_spot}")
+    if shadow_maps.dtype != F32 or tuple(shadow_maps.shape) != (n_dir + n_spot, size, size):
+        raise ValueError(f"shadow maps must be ({n_dir + n_spot}, dim, dim) float32, got {tuple(shadow_maps.shape)}")
+    planes = [_pixels(p, (rows, width, 4), f"G-buffer plane {name}") for name, p in zip(GBuffer._fields, gbuffer)]
+    if sun_shadow is not None:
+        sun_shadow = _pixels(sun_shadow, (rows, width), "sun_shadow")
+    if any(m.dtype != torch.bool for m in activity[:3]):
+        raise ValueError("the light masks must be bool")
+    tensors = [*planes, camera.position, shadow_maps, *activity[:3]] + ([sun_shadow] if sun_shadow is not None else [])
+    if any(t.device != dev for t in tensors):
+        raise ValueError("the G-buffer, camera, light masks and shadow maps must be on one device")
+    table = light_table(directional, spots)
+    camera_pos = camera.position[:3].contiguous()
+    maps = shadow_maps.contiguous()
+    masks = [m.contiguous() for m in activity[:3]]
+    codes, lo16, step16, n_w = q8_tables(maps) if q8 else (None, None, None, 0)
+    mask = torch.empty((), dtype=torch.int64, device=dev)
+    out = torch.empty((rows, width, 3), dtype=F32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = build.load("lighting").szg_lighting(
+        *[p.data_ptr() for p in planes], camera_pos.data_ptr(), table.data_ptr(), *[m.data_ptr() for m in masks],
+        n_dir, n_spot, int(shadowless_eps > 0.0), maps.data_ptr(), size, int(f16), ptr(codes), ptr(lo16),
+        ptr(step16), n_w, ptr(sun_shadow), out.data_ptr(), mask.data_ptr(), rows * width, dev.index,
+        torch._C._cuda_getCurrentRawStream(dev.index),
+    )
+    if err != 0:
+        raise RuntimeError(f"lighting kernel launch failed: CUDA error {err}")
+    LAUNCHES.lighting += 1
+    _LAST_MASK[dev] = mask
+    return out
+
+
+def _swap(x, table: dict):
+    """``x`` (a tensor, a NamedTuple of tensors or anything else) with each
+    tensor whose id is in ``table`` replaced by its value there."""
+    if isinstance(x, torch.Tensor):
+        return table.get(id(x), x)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*[_swap(v, table) for v in x])
+    return x
+
+
+def _grad_leaves(args) -> list:
+    """The tensors in ``args`` (tensors and NamedTuples of them) that
+    autograd needs, each once."""
+    found = {}
+    for x in args:
+        for t in (x if isinstance(x, tuple) else (x,)):
+            if isinstance(t, torch.Tensor) and t.requires_grad:
+                found[id(t)] = t
+    return list(found.values())
+
+
+class _PlainGradient(torch.autograd.Function):
+    """The kernel's lighting forward, and the plain version's gradient:
+    the backward recomputes :func:`deferred_lighting_plain` on detached
+    copies of the inputs that need a gradient and differentiates that."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, args, *needs):
+        ctx.plain, ctx.args = plain, args
+        ctx.save_for_backward(*needs)
+        return kernel()
+
+    @staticmethod
+    def backward(ctx, grad):
+        detached = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        # _grad_leaves gives the args' own tensors in the order of `needs`
+        table = {id(t): d for t, d in zip(_grad_leaves(ctx.args), detached)}
+        with torch.enable_grad():
+            lit = ctx.plain(*[_swap(x, table) for x in ctx.args])
+        grads = torch.autograd.grad(lit, detached, grad, allow_unused=True)
+        return (None, None, None, *grads)
+
+
+def deferred_lighting(
+    gbuffer: GBuffer,
+    camera: CameraPacked,
+    directional: DirectionalLight,
+    directional_count,  # i32 device scalars, as the reference takes them
+    directional_skip,
+    spots: SpotLight,
+    spot_count,
+    shadow_maps,  # (D + S, dim, dim) f32
+    unroll: bool = False,
+    pcf_bitmask: bool = False,
+    pcf_f16: bool = False,
+    pcf_q8: bool = False,
+    pcf_window2d: bool = False,
+    shadowless_eps: float = 0.0,
+    sun_shadow=None,
+):
+    """:func:`deferred_lighting_plain`'s lighting, with its signature and
+    its bits. On CUDA tensors it launches ``csrc/lighting.cu`` once: one
+    thread per pixel, every intermediate in registers, only the slots
+    :func:`light_activity` marks live evaluated (in the plain version's
+    order), their per-slot inputs packed by :func:`light_table`, q8 maps'
+    segments by :func:`q8_tables`. Where autograd needs the inputs, the
+    gradient is the plain version's (:class:`_PlainGradient`). CPU tensors
+    take :func:`deferred_lighting_plain`."""
+    args = (
+        gbuffer, camera, directional, directional_count, directional_skip, spots, spot_count, shadow_maps,
+        sun_shadow,
+    )
+    flags = dict(
+        unroll=unroll, pcf_bitmask=pcf_bitmask, pcf_f16=pcf_f16, pcf_q8=pcf_q8, pcf_window2d=pcf_window2d,
+        shadowless_eps=shadowless_eps,
+    )
+
+    def plain(*a):
+        return deferred_lighting_plain(*a[:-1], sun_shadow=a[-1], **flags)
+
+    if shadow_maps.device.type != "cuda":
+        return plain(*args)
+
+    def kernel():
+        with torch.no_grad():
+            activity = light_activity(
+                directional, directional_count, directional_skip, spots, spot_count, shadowless_eps,
+                shadow_maps.shape[0],
+            )
+            small = shadow_maps.shape[-1] <= PCF_WINDOW_MAX_DIM
+            return _launch_kernel(
+                gbuffer, camera, directional, spots, shadow_maps, shadowless_eps, activity,
+                pcf_f16 and small, pcf_q8 and small, sun_shadow,
+            )
+
+    needs = _grad_leaves(args) if torch.is_grad_enabled() else []
+    return _PlainGradient.apply(kernel, plain, args, *needs) if needs else kernel()

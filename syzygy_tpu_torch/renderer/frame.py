@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -52,6 +53,7 @@ from syzygy_tpu_torch.kernels.atmosphere import (
     pack_lut_q8,
 )
 from syzygy_tpu_torch.kernels.debuglines import draw_lines
+from syzygy_tpu_torch.kernels import lighting
 from syzygy_tpu_torch.kernels.lighting import convert_pbr, deferred_lighting, directional_pcf, light_activity
 from syzygy_tpu_torch.kernels.raster import LAUNCHES, TILE_H, TILE_W, rasterize, setup_triangles
 from syzygy_tpu_torch.kernels.resolve import (
@@ -483,11 +485,12 @@ STAGING_SLOTS = 2  # pinned rows per (device, size): a row in flight is never ov
 
 class _FrameGraph:
     """One frame captured as a CUDA graph: its static input row, its
-    output, the raster launches it holds, what its capture took, and its
-    :class:`layers.FrameTrace` (layer stamps in the graph, node counts,
-    each replay's host spans)."""
+    output, the raster and lighting launches it holds, what its capture
+    took, its :class:`layers.FrameTrace` (layer stamps in the graph, node
+    counts, each replay's host spans) and the slot mask its lighting
+    launch writes (:func:`kernels.lighting.last_slot_mask`)."""
 
-    def __init__(self, graph, geometry, row, output, launches, capture_s, pool_bytes, trace):
+    def __init__(self, graph, geometry, row, output, launches, capture_s, pool_bytes, trace, slot_mask):
         self.graph = graph
         self.geometry = geometry  # the graph reads its tensors: keep them alive
         self.row = row
@@ -496,6 +499,7 @@ class _FrameGraph:
         self.capture_s = capture_s
         self.pool_bytes = pool_bytes
         self.trace = trace
+        self.slot_mask = slot_mask
 
     @classmethod
     def capture(cls, geometry, row, spec, config):
@@ -511,7 +515,7 @@ class _FrameGraph:
         stream.wait_stream(current)
         with torch.no_grad(), torch.cuda.stream(stream):
             image = render_frame_eager(geometry, unflatten_frame_params(spec, row), config)
-            counts = LAUNCHES.snapshot()
+            counts = [counter.snapshot() for counter in _COUNTERS]
             reserved = torch.cuda.memory_reserved(device)
             t0 = time.perf_counter()
             graph = torch.cuda.CUDAGraph()
@@ -521,13 +525,16 @@ class _FrameGraph:
                     output = render_frame_eager(geometry, unflatten_frame_params(spec, row), config)
             finally:
                 graph.capture_end()
-                held = {k: v - counts[k] for k, v in LAUNCHES.snapshot().items()}
-                LAUNCHES.restore(counts)  # captured, not launched
+                held = {}
+                for counter, before in zip(_COUNTERS, counts):
+                    held.update({k: v - before[k] for k, v in counter.snapshot().items()})
+                    counter.restore(before)  # captured, not launched
             capture_s = time.perf_counter() - t0
         current.wait_stream(stream)
         image.record_stream(current)
         pool = torch.cuda.memory_reserved(device) - reserved
-        return cls(graph, geometry, row, output, held, capture_s, pool, trace), image
+        slot_mask = lighting.last_slot_mask(device) if held["lighting"] else None
+        return cls(graph, geometry, row, output, held, capture_s, pool, trace, slot_mask), image
 
     def replay(self, buffer):
         """Stage ``buffer`` into the row and replay; keeps the host spans."""
@@ -537,11 +544,13 @@ class _FrameGraph:
         self.graph.replay()
         t2 = time.perf_counter()
         self.trace.replayed((t0, t1), (t1, t2))
-        LAUNCHES.add(self.launches)
+        for counter in _COUNTERS:
+            counter.add(self.launches)
         return self.output.clone()
 
 
 _GRAPHS: collections.OrderedDict = collections.OrderedDict()
+_COUNTERS = (LAUNCHES, lighting.LAUNCHES)  # the kernel launches a graph holds, by kind
 _CAPTURE_STREAMS: dict = {}
 _STAGING: dict = {}
 
@@ -581,16 +590,21 @@ def _stage(buffer, row: torch.Tensor) -> None:
 def captured_frames() -> list[dict]:
     """What each cached CUDA graph holds: its config, the host seconds
     its capture took, the bytes its capture added to the device's
-    reserved memory (its pool), its raster launches, its ``layers`` in
-    frame order, its ``nodes`` (each layer's, ``stamps`` and ``total``),
-    its ``replays`` so far, and ``read``: a function that returns the
-    finished replays' :class:`layers.Replay` records (layer device ms,
-    host stage and replay ms), oldest first, once the frames are done."""
+    reserved memory (its pool), its raster and lighting kernel launches,
+    its ``layers`` in frame order, its ``nodes`` (each layer's, ``stamps``
+    and ``total``), its ``replays`` so far, ``read``: a function that
+    returns the finished replays' :class:`layers.Replay` records (layer
+    device ms, host stage and replay ms), oldest first, once the frames
+    are done, and ``lighting_slots``: a function that returns the light
+    slots that the graph's lighting launch evaluated in its last replay
+    (:func:`kernels.lighting.evaluated_slots`), None for a graph without
+    one."""
     return [
         {
             "config": key[2], "capture_s": g.capture_s, "pool_bytes": g.pool_bytes, "launches": g.launches,
             "layers": list(g.trace.layers), "nodes": g.trace.nodes, "replays": g.trace.replays,
             "read": g.trace.read,
+            "lighting_slots": functools.partial(lighting.evaluated_slots, g.slot_mask),
         }
         for key, g in _GRAPHS.items()
     ]

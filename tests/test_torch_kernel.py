@@ -137,7 +137,9 @@ out=""; prev=""
 for a in "$@"; do
   if [ "$prev" = "-o" ]; then out="$a"; fi
   prev="$a"
-  case "$a" in *gather.cu) src=gather ;; *raster.cu) src=raster ;; *stamp.cu) src=stamp ;; esac
+  case "$a" in
+    *gather.cu) src=gather ;; *raster.cu) src=raster ;; *stamp.cu) src=stamp ;; *lighting.cu) src=lighting ;;
+  esac
 done
 echo "$src" >> "$CALLS"
 if [ "$src" = "$FAIL_ON" ]; then echo "error: refused" >&2; exit 2; fi
@@ -175,7 +177,7 @@ def test_build_compiles_each_source_once(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="csrc/gather.cu"):
         build.build()
     built = sorted(p.name.split("_")[1] for p in (tmp_path / "build2").iterdir())
-    assert built == ["raster", "raster", "stamp", "stamp"]
+    assert built == ["lighting", "lighting", "raster", "raster", "stamp", "stamp"]
 
 
 def test_load_binds_entry_points_once(monkeypatch):
@@ -186,7 +188,7 @@ def test_load_binds_entry_points_once(monkeypatch):
     class Lib:
         def __init__(self, path):
             self.path = path
-            for entry in ("szg_raster", "szg_lane_gather", "szg_stamp", "szg_capture_nodes"):
+            for entry in ("szg_raster", "szg_lane_gather", "szg_stamp", "szg_capture_nodes", "szg_lighting"):
                 setattr(self, entry, type("Fn", (), {})())
 
     monkeypatch.setattr(build, "build", lambda name: {name: f"/lib/{name}.so"})
@@ -206,6 +208,9 @@ def test_load_binds_entry_points_once(monkeypatch):
     stamp_args, _ = build.ENTRY_POINTS["stamp"]["szg_stamp"]
     assert stamp_args.count(ctypes.c_void_p) == 3 and len(stamp_args) == 8
     assert build.ENTRY_POINTS["stamp"]["szg_capture_nodes"][0] == [ctypes.c_void_p] * 2
+    lighting_args, _ = build.ENTRY_POINTS["lighting"]["szg_lighting"]
+    assert lighting_args.count(ctypes.c_void_p) == 18 and lighting_args.count(ctypes.c_longlong) == 1
+    assert len(lighting_args) == 26
 
 
 # --- the kernel's design rules, on the CPU ----------------------------------
