@@ -13,7 +13,10 @@ Port of ``syzygy_tpu/kernels/sky.py``, both formulations of
   integral per pixel over ``where(is_env, planet distance, surface
   distance)``, the unshared :func:`sample_environment` along the camera
   ray and, with the metallic bounce, a second one from the surface along
-  the reflected ray.
+  the reflected ray. :func:`aerial_integrals_exact` computes both
+  integrals (and the per-pixel rays and materials they need) ahead of the
+  pass, which takes them as ``exact``; the frame enqueues them as a layer
+  of their own (``renderer/layers.py``: ``aerial_exact``).
 """
 
 from __future__ import annotations
@@ -480,34 +483,111 @@ def _transfers_aerial(
     return env_transfer, geo_transfer
 
 
-def _transfers_exact(
-    atmo, transmittance_lut, skyview_lut, pos_grid, direction, sky_material, is_env,
-    dist_surface, sun_shadow, metallic_reflection, fast, fast_reflection,
-):
-    """(environment, geometry) luminance transfers of the quirk-exact
-    formulation (``sky.py:761-809``): the two branches are exclusive per
-    pixel, so one 32-step integral over the per-pixel distance serves
-    both."""
+class SkyPixels(NamedTuple):
+    """The sky pass's per-pixel inputs (``camera.comp:303-328``): the
+    camera ``position`` (3,) and view ``direction`` (h, w, 3) in sky space
+    (+y up, Mm), the centred clip coordinates ``xs`` (1, w) and ``ys``
+    (h, 1), the G-buffer's ``material`` in engine space and
+    ``sky_material`` in sky space, ``pos_grid`` (the position broadcast
+    over the pixels), ``is_env`` (no geometry, or geometry below the
+    ground) and ``dist_surface`` (camera to surface, Mm)."""
+
+    position: torch.Tensor
+    direction: torch.Tensor
+    xs: torch.Tensor
+    ys: torch.Tensor
+    material: PBRTexel
+    sky_material: PBRTexel
+    pos_grid: torch.Tensor
+    is_env: torch.Tensor
+    dist_surface: torch.Tensor
+
+
+def sky_pixels(scene_depth, gbuffer: GBuffer, camera: CameraPacked, atmo: AtmospherePacked,
+               draw_extent: tuple[int, int], row_origin: int = 0) -> SkyPixels:
+    """:class:`SkyPixels` of rows ``[row_origin, row_origin + h)``."""
+    h, w = scene_depth.shape
+    flip = _flip(scene_depth.device)
+    position, direction, xs, ys = camera_rays(camera, atmo, h, w, draw_extent, row_origin)
+    zero = torch.zeros_like(atmo.planet_radius_mm)
+    up_r = torch.stack([zero, atmo.planet_radius_mm, zero])
+
+    material = convert_pbr(gbuffer)
+    sky_material = material._replace(
+        normal=material.normal * flip,
+        position=material.position * flip / METERS_PER_MM + up_r,
+    )
+    pos_grid = position.expand(direction.shape)
+    is_env = (scene_depth == 0.0) | (material.position[..., 1] > 0.0)
+    dist_surface = vec_norm(sky_material.position - pos_grid)
+    return SkyPixels(position, direction, xs, ys, material, sky_material, pos_grid, is_env, dist_surface)
+
+
+class ExactAerial(NamedTuple):
+    """The quirk-exact formulation's in-scattering integrals
+    (:func:`aerial_integrals_exact`): the ``pixels`` they were taken over,
+    the camera ray's ``planet`` hit (hit, distance), the ``shared``
+    integral (h, w, 3) and, with the metallic bounce, ``bounce``: the
+    reflected direction, its planet hit from the surface and its
+    integral (None without the bounce)."""
+
+    pixels: SkyPixels
+    planet: tuple
+    shared: torch.Tensor
+    bounce: tuple | None
+
+
+def aerial_integrals_exact(
+    scene_depth, gbuffer: GBuffer, camera: CameraPacked, atmo: AtmospherePacked, transmittance_lut,
+    draw_extent: tuple[int, int], metallic_reflection: bool = True, row_origin: int = 0,
+    fast: bool = False, fast_reflection: bool = False,
+) -> ExactAerial:
+    """The per-pixel in-scattering integrals of the quirk-exact sky pass
+    (``camera.comp:274-277, 379-387``, ``common.glinl:363-424``): the
+    pixels are exclusively environment or geometry, so one 32-step
+    integral over ``where(is_env, planet distance, surface distance)``
+    serves both branches; with ``metallic_reflection`` the bounce's
+    environment integral from the surface along the reflected ray, with
+    the exp-step integral when ``fast or fast_reflection``. The pass
+    (:func:`sky_camera_pass` ``exact=``) reads them as they are."""
+    pixels = sky_pixels(scene_depth, gbuffer, camera, atmo, draw_extent, row_origin)
+    pos_grid, direction, sky_material = pixels.pos_grid, pixels.direction, pixels.sky_material
     hit, dist_planet = _hit_planet_fma(atmo, pos_grid, direction)
-    shared_dist = torch.where(is_env, dist_planet, dist_surface)
-    shared_aerial = _integral(fast)(atmo, transmittance_lut, pos_grid, direction, shared_dist)
+    shared_dist = torch.where(pixels.is_env, dist_planet, pixels.dist_surface)
+    shared = _integral(fast)(atmo, transmittance_lut, pos_grid, direction, shared_dist)
+    bounce = None
+    if metallic_reflection:  # the ad-hoc single bounce (camera.comp:379-387)
+        refl_dir = reflect_direction(sky_material.normal, -direction)
+        refl_hit = _hit_planet_fma(atmo, sky_material.position, refl_dir)
+        refl_aerial = _integral(fast or fast_reflection)(
+            atmo, transmittance_lut, sky_material.position, refl_dir, refl_hit[1]
+        )
+        bounce = (refl_dir, refl_hit, refl_aerial)
+    return ExactAerial(pixels, (hit, dist_planet), shared, bounce)
+
+
+def _transfers_exact(atmo, transmittance_lut, skyview_lut, exact: ExactAerial, sun_shadow):
+    """(environment, geometry) luminance transfers of the quirk-exact
+    formulation (``sky.py:761-809``) over the integrals of ``exact``."""
+    pixels = exact.pixels
+    pos_grid, direction, sky_material = pixels.pos_grid, pixels.direction, pixels.sky_material
     env, disk = sample_environment(
         atmo, transmittance_lut, skyview_lut, pos_grid, direction,
-        hit_dist=(hit, dist_planet), aerial=shared_aerial,
+        hit_dist=exact.planet, aerial=exact.shared,
     )
     env_transfer = env + disk  # shadowFactor = 1 on the environment branch
     geo_transfer = geometry_luminance_transfer(
         atmo, transmittance_lut, direction, sky_material, sun_shadow,
-        aerial=shared_aerial, origin=pos_grid,
+        aerial=exact.shared, origin=pos_grid,
     )
-    if metallic_reflection:  # the ad-hoc single bounce (camera.comp:379-387)
+    if exact.bounce is not None:  # the ad-hoc single bounce (camera.comp:379-387)
         t_surface = sample_transmittance_segment(
             transmittance_lut, atmo, pos_grid, sky_material.position
         )
-        refl_dir = reflect_direction(sky_material.normal, -direction)
+        refl_dir, refl_hit, refl_aerial = exact.bounce
         refl_env, refl_disk = sample_environment(
             atmo, transmittance_lut, skyview_lut, sky_material.position, refl_dir,
-            fast=fast or fast_reflection,
+            hit_dist=refl_hit, aerial=refl_aerial,
         )
         refl = refl_env + refl_disk * sun_shadow[..., None]
         geo_transfer = geo_transfer + (
@@ -540,45 +620,42 @@ def sky_camera_pass(
     pcf_q8: bool = False,
     pcf_window2d: bool = False,
     sun_shadow=None,  # (H, W) sun PCF shared with the lighting pass, or None
+    exact: ExactAerial | None = None,  # the quirk-exact integrals, computed ahead
 ):
     """``camera.comp`` main (``:303-395``) -> (H, W, 3) tonemapped color
     (``sky.py:598-822``). The ``pcf_*`` flags go to the sun's
     :func:`sample_shadow_map`; a given ``sun_shadow`` (the same PCF,
     evaluated once for both passes: ``RenderConfig.share_sun_pcf``)
-    replaces it."""
-    h, w = scene_depth.shape
-    flip = _flip(scene_depth.device)
-    position, direction, xs, ys = camera_rays(camera, atmo, h, w, draw_extent, row_origin)
-    zero = torch.zeros_like(atmo.planet_radius_mm)
-    up_r = torch.stack([zero, atmo.planet_radius_mm, zero])
-
-    material = convert_pbr(gbuffer)
-    sky_material = material._replace(
-        normal=material.normal * flip,
-        position=material.position * flip / METERS_PER_MM + up_r,
-    )
-    pos_grid = position.expand(direction.shape)
-    is_env = (scene_depth == 0.0) | (material.position[..., 1] > 0.0)
-    dist_surface = vec_norm(sky_material.position - pos_grid)
+    replaces it. Without ``aerial``, ``exact`` gives the per-pixel
+    integrals and the pixels they were taken over
+    (:func:`aerial_integrals_exact` of the same block and settings);
+    without it the pass computes them itself."""
+    if aerial is not None:
+        pixels = sky_pixels(scene_depth, gbuffer, camera, atmo, draw_extent, row_origin)
+    else:
+        if exact is None:
+            exact = aerial_integrals_exact(
+                scene_depth, gbuffer, camera, atmo, transmittance_lut, draw_extent,
+                metallic_reflection, row_origin, fast, fast_reflection,
+            )
+        pixels = exact.pixels
 
     if sun_shadow is None:
         sun_shadow = directional_pcf(
-            sun_light, material, sun_shadow_map,
+            sun_light, pixels.material, sun_shadow_map,
             bitmask=pcf_bitmask, f16=pcf_f16, q8=pcf_q8, window2d=pcf_window2d,
         )
 
     if aerial is not None:
         env_transfer, geo_transfer = _transfers_aerial(
-            atmo, transmittance_lut, skyview_lut, pos_grid, direction, sky_material, is_env,
-            dist_surface, sun_shadow, xs, ys, aerial, aerial_t_max, tseg_rows, metallic_reflection,
+            atmo, transmittance_lut, skyview_lut, pixels.pos_grid, pixels.direction, pixels.sky_material,
+            pixels.is_env, pixels.dist_surface, sun_shadow, pixels.xs, pixels.ys, aerial, aerial_t_max,
+            tseg_rows, metallic_reflection,
         )
     else:
-        env_transfer, geo_transfer = _transfers_exact(
-            atmo, transmittance_lut, skyview_lut, pos_grid, direction, sky_material, is_env,
-            dist_surface, sun_shadow, metallic_reflection, fast, fast_reflection,
-        )
+        env_transfer, geo_transfer = _transfers_exact(atmo, transmittance_lut, skyview_lut, exact, sun_shadow)
 
-    env3 = is_env[..., None]
+    env3 = pixels.is_env[..., None]
     transfer = torch.where(env3, env_transfer, geo_transfer)
     surface_luminance = torch.where(env3, 0.0, scene_color)
     luminance = transfer * atmo.sun_intensity_spectrum

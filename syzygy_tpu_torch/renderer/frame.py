@@ -24,7 +24,7 @@ config) after one eager frame; :func:`render_frame_eager` and
 :func:`render_frame_rows` (which may hold collectives) stay eager, as does
 every CPU frame.
 
-The frame runs as eight contiguous layers (``renderer/layers.py``), each
+The frame runs as contiguous layers (``renderer/layers.py``), each
 a profiler range; a captured graph holds a stamp at every layer boundary,
 so each replay writes its layers' device times (:func:`captured_frames`).
 
@@ -62,6 +62,7 @@ from syzygy_tpu_torch.kernels.resolve import (
     transform_positions,
 )
 from syzygy_tpu_torch.kernels.sky import (
+    aerial_integrals_exact,
     build_aerial_lut,
     compute_skyview_tseg,
     pack_tseg_rows,
@@ -372,11 +373,12 @@ def _sky(state, lit, depth, gbuffer, shadow_maps, config: RenderConfig, row0: in
             sky_lut = pack_lut_q8(sky_arr)
         else:
             sky_lut = sky_arr.to(torch.float16) if config.skyview_f16 else sky_arr
-    tseg = aerial = None
+    tseg = aerial = exact = None
     t_max_mm = config.aerial_lut_far_m / METERS_PER_MM
+    draw_extent = (config.render_width, config.render_height)
     # without the aerial LUT, the f16 copy of the transmittance LUT counts
-    # as the sky pass, as do the per-pixel integrals
-    with layer("aerial_lut" if config.aerial_lut else "sky_pass"):
+    # as the per-pixel integrals' layer, whose integrals sample it
+    with layer("aerial_lut" if config.aerial_lut else "aerial_exact"):
         if config.aerial_lut:
             if config.skyview_tseg:
                 tseg = pack_tseg_rows(compute_skyview_tseg(atmo, t_lut, origin_mm, config.skyview_height))
@@ -385,15 +387,20 @@ def _sky(state, lit, depth, gbuffer, shadow_maps, config: RenderConfig, row0: in
             t_lut = _f16_copy(t_lut)
             if aerial is not None:
                 aerial = aerial._replace(volume=_f16_copy(aerial.volume))
+        if not config.aerial_lut:
+            exact = aerial_integrals_exact(
+                depth, gbuffer, cam, atmo, t_lut, draw_extent, config.metallic_reflection, row0,
+                fast=config.fast_sky, fast_reflection=config.fast_sky_reflection,
+            )
     with layer("sky_pass"):
         sun = type(state.directional_lights)(*[x[0] for x in state.directional_lights])
         color = sky_camera_pass(
             lit, depth, gbuffer, cam, atmo, t_lut, sky_lut, sun, shadow_maps[0],
-            draw_extent=(config.render_width, config.render_height),
+            draw_extent=draw_extent,
             aerial=aerial, aerial_t_max=t_max_mm, tseg_rows=tseg,
             metallic_reflection=config.metallic_reflection,
             row_origin=row0, fast=config.fast_sky, fast_reflection=config.fast_sky_reflection,
-            sun_shadow=sun_shadow, **_pcf_flags(config),
+            sun_shadow=sun_shadow, exact=exact, **_pcf_flags(config),
         )
         return torch.clamp(color, 0.0, 1.0)
 

@@ -1,14 +1,17 @@
 """The frame's layers, traced from inside the frame.
 
-A frame runs eight contiguous layers, :data:`LAYERS`, in this order:
+A frame runs contiguous layers of :data:`LAYERS`, in this order:
 ``state`` (frame state, vertex and normal transforms, light activity),
 ``shadow`` (the shadow-map slots), ``gbuffer`` (camera setup, raster,
 resolve), ``lighting`` (the sun's shared PCF, deferred lighting),
 ``skyview_lut`` (the transmittance and sky-view LUTs), ``aerial_lut``
-(t_seg rows, the aerial LUT, the f16 sampling copies), ``sky_pass`` (the
-sky camera pass) and ``encode`` (debug lines, box filter, OETF, crop). A
-frame without the atmosphere runs no sky layer; with ``aerial_lut=False``
-the per-pixel sky integrals count as ``sky_pass``.
+(t_seg rows, the aerial LUT, the f16 sampling copies), ``aerial_exact``
+(with ``aerial_lut=False``: the sky pass's per-pixel rays and materials,
+the per-pixel in-scattering integrals and the f16 sampling copy), ``sky_pass``
+(the sky camera pass) and ``encode`` (debug lines, box filter, OETF,
+crop). A frame runs one of ``aerial_lut`` and ``aerial_exact``: eight
+layers, a LUT frame never entering ``aerial_exact``; a frame without
+the atmosphere runs no sky layer.
 
 :func:`layer` opens a ``torch.profiler.record_function`` range named
 ``syzygy.<layer>`` around each, so an eager frame run under the profiler
@@ -38,7 +41,9 @@ import torch
 
 from syzygy_tpu_torch.kernels import stamp as stamps
 
-LAYERS = ("state", "shadow", "gbuffer", "lighting", "skyview_lut", "aerial_lut", "sky_pass", "encode")
+LAYERS = (
+    "state", "shadow", "gbuffer", "lighting", "skyview_lut", "aerial_lut", "aerial_exact", "sky_pass", "encode",
+)
 MARKS = len(LAYERS) + 1  # a frame's layer boundaries, at most
 RING_REPLAYS = 4096  # replays a ring holds: 13 minutes of 200 ms frames
 

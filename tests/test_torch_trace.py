@@ -2,8 +2,9 @@
 
 On the CPU, with a :class:`FrameTrace` installed as the recorder (its
 stamps the host clock's, ``kernels/stamp.py::stamp_plain``): a 256x128
-frame marks the eight layers in frame order, the frames without the
-atmosphere or the aerial LUT mark their subsets, the image is bitwise the
+frame marks its eight layers in frame order, the frames without the
+atmosphere or with the quirk-exact sky (``aerial_exact`` in place of
+``aerial_lut``) mark theirs, the image is bitwise the
 frame without a recorder, a profiled frame shows a ``syzygy.<layer>``
 range per layer it runs, host stamps count no kernel launch, and the
 ring's reader keeps only the slots whose
@@ -28,6 +29,8 @@ from syzygy_tpu_torch.renderer import layers
 from syzygy_tpu_torch.renderer.layers import LAYERS, MARKS, FrameTrace, finished_replays, layer, recording
 
 SMALL = dict(width=256, height=128, shadow_dim=256, skyview_width=128, skyview_height=64)
+LUT_LAYERS = [name for name in LAYERS if name != "aerial_exact"]  # a frame of the default aerial LUT
+EXACT_LAYERS = [name for name in LAYERS if name != "aerial_lut"]  # a quirk-exact frame
 
 
 def _frame_inputs(device, **overrides):
@@ -80,10 +83,10 @@ def recorded(cpu_frame, small_ring):
 def test_frame_marks_every_layer_in_order(recorded):
     trace, _ = recorded
     assert trace.ring.shape == (4, MARKS + 1)
-    assert trace.layers == list(LAYERS)
+    assert trace.layers == LUT_LAYERS
     slot = trace.ring[0].tolist()
     assert slot[-1] == 0 and int(trace.seq) == 1  # the last mark finished replay 0
-    times = slot[:MARKS]
+    times = slot[: len(LUT_LAYERS) + 1]
     assert times == sorted(times) and min(times) > 0
     assert trace.nodes is None  # no graph on the CPU
 
@@ -97,10 +100,10 @@ def test_recorder_leaves_the_frame_bitwise(cpu_frame, recorded):
     "overrides, marked",
     [
         ({"render_atmosphere": False}, ["state", "shadow", "gbuffer", "lighting", "encode"]),
-        ({"aerial_lut": False, "lut_f16": True},
-         ["state", "shadow", "gbuffer", "lighting", "skyview_lut", "sky_pass", "encode"]),
+        ({"aerial_lut": False, "lut_f16": True}, EXACT_LAYERS),
+        ({"aerial_lut": False, "fast_sky_reflection": False}, EXACT_LAYERS),
     ],
-    ids=["no_atmosphere", "no_aerial_lut"],
+    ids=["no_atmosphere", "no_aerial_lut", "quirk_exact"],
 )
 def test_frames_without_a_layer_mark_the_rest(cpu_frame, small_ring, overrides, marked):
     trace, _ = _recorded(cpu_frame, **overrides)
@@ -211,7 +214,7 @@ def _graph():
 
 @pytest.mark.cuda
 def test_replay_carries_every_stamp_and_its_layers_sum_to_its_interval(cuda):
-    """A 1080p replay: eight layers, their sum within 0.5% of the
+    """A 1080p replay: the LUT frame's eight layers, their sum within 0.5% of the
     replay's interval by CUDA events (the second replay's, so the graph's
     launch is not inside it), and the node counts summing to the total."""
     from syzygy_tpu_torch.kernels.stamp import LAUNCHES
@@ -229,20 +232,49 @@ def test_replay_carries_every_stamp_and_its_layers_sum_to_its_interval(cuda):
     end.record()
     torch.cuda.synchronize()
     graph = _graph()
-    assert graph["layers"] == list(LAYERS) and graph["replays"] == 2
+    assert graph["layers"] == LUT_LAYERS and graph["replays"] == 2
     replays = graph["read"]()
     assert [r.seq for r in replays] == [0, 1]
     replay = replays[1]
-    assert [name for name, _, _ in replay.layers] == list(LAYERS)
+    assert [name for name, _, _ in replay.layers] == LUT_LAYERS
     assert all(e >= s for _, s, e in replay.layers)
     interval = start.elapsed_time(end)
     assert abs(sum(replay.layer_ms.values()) - interval) <= 0.005 * interval, (replay.layer_ms, interval)
     assert 0.0 < replay.stage_ms and 0.0 < replay.replay_ms
     nodes = graph["nodes"]
-    assert nodes["stamps"] == MARKS
-    assert sum(nodes[name] for name in LAYERS) + nodes["stamps"] == nodes["total"]
-    assert all(nodes[name] > 0 for name in LAYERS)
-    assert LAUNCHES.stamp == 2 * MARKS  # the stamps each replay launched
+    assert nodes["stamps"] == len(LUT_LAYERS) + 1
+    assert sum(nodes[name] for name in LUT_LAYERS) + nodes["stamps"] == nodes["total"]
+    assert all(nodes[name] > 0 for name in LUT_LAYERS)
+    assert LAUNCHES.stamp == 2 * (len(LUT_LAYERS) + 1)  # the stamps each replay launched
+
+
+@pytest.mark.cuda
+def test_quirk_exact_replay_stamps_its_integrals_layer(cuda):
+    """A quirk-exact 1080p replay: ``aerial_exact`` between
+    ``skyview_lut`` and ``sky_pass``, with device time and nodes of its
+    own, the layers summing to the graph's nodes, and the replay bitwise
+    the eager frame."""
+    from syzygy_tpu_torch.renderer.frame import render_frame_eager, render_frame_packed
+    from syzygy_tpu_torch.scene.pack import upload_frame_params
+
+    geometry, host, spec, row, config = _frame_inputs(
+        cuda, width=1920, height=1080, shadow_dim=1024, skyview_width=2048, skyview_height=1024,
+        aerial_lut=False, fast_sky_reflection=False,
+    )
+    render_frame_packed(geometry, row, spec, config)  # the eager frame and the capture
+    image = render_frame_packed(geometry, row, spec, config)
+    eager = render_frame_eager(geometry, upload_frame_params(host, cuda), config)
+    torch.cuda.synchronize()
+    assert torch.equal(image, eager)
+    graph = _graph()
+    assert graph["layers"] == EXACT_LAYERS
+    (replay,) = graph["read"]()
+    assert [name for name, _, _ in replay.layers] == EXACT_LAYERS
+    assert replay.layer_ms["aerial_exact"] > 0.0
+    nodes = graph["nodes"]
+    assert nodes["stamps"] == len(EXACT_LAYERS) + 1
+    assert sum(nodes[name] for name in EXACT_LAYERS) + nodes["stamps"] == nodes["total"]
+    assert nodes["aerial_exact"] > 0
 
 
 @pytest.mark.cuda
