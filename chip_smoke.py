@@ -10,7 +10,8 @@ no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``syzygy_tpu_torch/csrc/*.cu`` (the raster,
-   the lighting, the lane gather and the layer stamp, one ``nvcc`` each,
+   the lighting, the in-scattering integral, the lane gather and the layer
+   stamp, one ``nvcc`` each,
    concurrently), with ptxas's
    register report; then the C++ host core (``syzygy_tpu_torch/native.py``
    builds ``csrc/szg_native.cpp`` with ``g++``), which must load, and
@@ -39,10 +40,16 @@ no result line):
    flagship, with all 2 + 16 light slots live, and the chess and
    all-slots cases again on ``pcf_q8`` maps of 2048 texels, each with the
    slots it evaluated, the kernel's device time and the whole call's,
-   beside the plain version and its bytes bound;
+   beside the plain version and its bytes bound; the in-scattering
+   integral (``csrc/scattering.cu``) against its plain version on every
+   integral a 1920x1080 frame calls (the editor's default scene: the
+   sky-view rows and the aerial froxels; the chess flagship's quirk-exact
+   frame: the sky-view rows, the per-pixel integral and the metallic
+   bounce's), each with its launches, the kernel's device time, the whole
+   call's, the plain version's and the operations bound;
 4. the main paths, each with the launch counters set to 0 just before and
-   read just after (the stamps' and the lighting's too: each replay
-   launches the stamps and the lighting its graph holds): 4 frames of the default scene and 3 of the chess
+   read just after (the stamps', the lighting's and the scattering's too:
+   each replay launches those its graph holds): 4 frames of the default scene and 3 of the chess
    flagship through ``renderer.frame.render_frame`` at the default
    1920x1080 RenderConfig (CUDA-event ms/frame, peak memory); the chess
    flagship at 1920x1080 in the quirk-exact configuration of
@@ -1084,6 +1091,104 @@ def phase_compare_lighting(device):
     return reports
 
 
+SCATTERING_PLAIN_REPS = 2  # the plain integral's calls per timing (~14,500 kernels each)
+# the cells' integrals: name, scene, RenderConfig overrides (at 1920x1080)
+SCATTERING_CASES = (
+    ("editor", "editor", {}),
+    ("chess_quirk_exact", "chess", dict(aerial_lut=False, fast_sky_reflection=False)),
+)
+SCATTERING_CALLS = {  # the integrals each case's frame calls, in order
+    "editor": ("skyview_rows", "aerial_froxels"),
+    "chess_quirk_exact": ("skyview_rows", "per_pixel", "bounce"),
+}
+
+
+def integral_calls(scene, library, config, device):
+    """Every in-scattering integral one eager frame calls, in call order:
+    (components, args) as ``kernels.atmosphere._integral`` receives them."""
+    from syzygy_tpu_torch.kernels import atmosphere
+    from syzygy_tpu_torch.renderer.frame import render_frame_eager
+    from syzygy_tpu_torch.scene.pack import pack_frame_params, pack_geometry, upload_frame_params
+
+    geometry = pack_geometry(scene, library, device)
+    params = upload_frame_params(pack_frame_params(scene, config.width / config.height), device)
+    calls = []
+    real = atmosphere._integral
+
+    def spy(components, *args):
+        calls.append((components, args))
+        return real(components, *args)
+
+    atmosphere._integral = spy
+    try:
+        with torch.no_grad():
+            render_frame_eager(geometry, params, config)
+    finally:
+        atmosphere._integral = real
+    torch.cuda.synchronize()
+    return calls
+
+
+def phase_compare_scattering(device):
+    """The in-scattering kernel (``csrc/scattering.cu``) vs its plain
+    version on the card, bitwise, on every integral a 1920x1080 frame of
+    the cells calls: the editor's default scene (the sky-view rows in
+    components form, the 16x32x32 aerial froxels) and the chess flagship's
+    quirk-exact frame (the sky-view rows, the per-pixel integral from the
+    eye, the metallic bounce's from every surface). Each call: the
+    elements that differ and the largest difference, its launches and
+    rays, the kernel's own device time (``ms``), the whole call (the
+    table's and the rays' prologue included) by CUDA events, the plain
+    version by CUDA events, and the operations bound: the rays of non-zero
+    distance (a ray of distance 0 takes one step 32 times) x 32 steps x
+    ``frame_bench/aerial_work.py``'s ``OPS_PER_STEP`` at the fp32 rate."""
+    from frame_bench.aerial_work import OPS_PER_STEP, STEPS
+    from syzygy_tpu_torch.bench import chess_scene, default_scene_animated
+    from syzygy_tpu_torch.kernels import atmosphere as A
+    from syzygy_tpu_torch.renderer.frame import RenderConfig
+
+    plain_of = {True: A._scattering_integral_components_plain, False: A.luminance_scattering_integral_plain}
+    reports = []
+    for case, scene_name, overrides in SCATTERING_CASES:
+        scene, library = chess_scene() if scene_name == "chess" else default_scene_animated()
+        config = RenderConfig(**(dict(width=1920, height=1080) | overrides))
+        calls = integral_calls(scene, library, config, device)
+        names = SCATTERING_CALLS[case]
+        check(len(calls) == len(names), f"scattering ({case}): the frame called {len(calls)} integrals, not {len(names)}")
+        for name, (components, args) in zip(names, calls):
+            plain = plain_of[components]
+            with torch.no_grad():
+                A.LAUNCHES.reset()
+                kern = A._integral(components, *args)
+                launches, rays = A.LAUNCHES.scattering, A.LAUNCHES.scattering_rays
+                want = plain(*args)
+                torch.cuda.synchronize()
+                kern, want = (kern, want) if components else ((kern,), (want,))
+                differ = sum(int((k != w).sum()) for k, w in zip(kern, want))
+                max_abs = max(float((k - w).abs().max()) for k, w in zip(kern, want))
+            check(differ == 0, f"scattering ({case} {name}) differs from its plain version at {differ} elements")
+            n = args[4].numel()
+            check(launches == 1 and rays == n, f"scattering ({case} {name}): {launches} launches over {rays} rays")
+            counted = int((args[4] != 0).sum())
+
+            def call():
+                with torch.no_grad():
+                    A._integral(components, *args)
+
+            report = {"name": f"scattering_{case}_{name}", "components": components, "rays": n,
+                      "rays_counted": counted, "origin_stride": A._rays(*args[2:])[1], "differ": differ,
+                      "max_abs_err": max_abs, "bitwise": True, "launches": launches,
+                      "ms": device_ms(call, kernel="scattering_kernel"), "call_ms": time_ms(call)}
+            with torch.no_grad():
+                report["plain_ms"] = time_ms(lambda: plain(*args), SCATTERING_PLAIN_REPS)
+            report["bound_ms"], report["bound_by"] = bound(0, counted * STEPS * OPS_PER_STEP)
+            print("compare " + json.dumps(report), flush=True)
+            reports.append(report)
+        del calls, kern, want
+        torch.cuda.empty_cache()
+    return reports
+
+
 BENCH_FRAMES, BENCH_GROUP = 8, 4  # timed frames per scene and frames per group in phase_bench
 
 
@@ -1803,7 +1908,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         import syzygy_tpu_torch
-        from syzygy_tpu_torch.kernels import build, lighting, stamp
+        from syzygy_tpu_torch.kernels import atmosphere, build, lighting, stamp
     except ImportError as e:
         print(f"FAIL: the syzygy_tpu_torch package is not beside this script ({e})", file=sys.stderr)
         return 1
@@ -1827,17 +1932,20 @@ def main() -> int:
         print(f"phase {name}: {seconds[name]:.2f} s", flush=True)
         return out
 
-    stamp_launches, lighting_launches = {}, {}
+    stamp_launches, lighting_launches, scattering_launches = {}, {}, {}
 
     def main_path(name, fn, *args, **kwargs):
-        """``timed``, with the stamp and lighting launches of the frames it
-        runs (a replay launches those its graph holds)."""
+        """``timed``, with the stamp, lighting and scattering launches of
+        the frames it runs (a replay launches those its graph holds)."""
         stamp.LAUNCHES.reset()
         lighting.LAUNCHES.reset()
+        atmosphere.LAUNCHES.reset()
         out = timed(name, fn, *args, **kwargs)
         stamp_launches[name] = stamp.LAUNCHES.stamp
         lighting_launches[name] = lighting.LAUNCHES.lighting
-        print(f"phase {name}: {stamp_launches[name]} stamp launches, {lighting_launches[name]} lighting launches",
+        scattering_launches[name] = atmosphere.LAUNCHES.scattering
+        print(f"phase {name}: {stamp_launches[name]} stamp launches, {lighting_launches[name]} lighting launches, "
+              f"{scattering_launches[name]} scattering launches over {atmosphere.LAUNCHES.scattering_rays} rays",
               flush=True)
         return out
 
@@ -1850,6 +1958,7 @@ def main() -> int:
         gather_report = timed("compare_gather", phase_compare_gather, device)[0]
         stamp_report = timed("compare_stamp", phase_compare_stamp, device)
         lighting_reports = timed("compare_lighting", phase_compare_lighting, device)
+        scattering_reports = timed("compare_scattering", phase_compare_scattering, device)
         scene, library = default_scene()
         scene.tick(0.0)
         default_frames = main_path("frames_default", phase_frames, "default", scene, library, device, n_frames=4,
@@ -1936,6 +2045,14 @@ def main() -> int:
             "plain_ms": lighting_reports[0]["plain_ms"], "bound_ms": lighting_reports[0]["bound_ms"],
             "bound_by": lighting_reports[0]["bound_by"], "library_ms": None,
             "cases": [{k: r[k] for k in ("name", "slots", "ms", "plain_ms", "bound_ms")} for r in lighting_reports],
+        },
+        {
+            "name": "scattering", "route": "cuda", "source": "syzygy_tpu_torch/csrc/scattering.cu",
+            "replaces": None, "launches": sum(scattering_launches.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in scattering_reports), "ms": scattering_reports[-2]["ms"],
+            "plain_ms": scattering_reports[-2]["plain_ms"], "bound_ms": scattering_reports[-2]["bound_ms"],
+            "bound_by": scattering_reports[-2]["bound_by"], "library_ms": None,
+            "cases": [{k: r[k] for k in ("name", "rays", "ms", "plain_ms", "bound_ms")} for r in scattering_reports],
         },
     ]
     if any(k["launches"] < 1 for k in kernels):

@@ -9,6 +9,15 @@ difference (``common.glinl:325``). Units: megameters, +y up.
 LUTs are stored plain (``(H, W, C)`` f32, or the q8 sky-view form); the
 TPU's quad packing (one gather per bilinear footprint) is a gather layout
 that does not change values and is not carried over.
+
+The 32-step LUT-ratio integral takes one of two forms by its LUT's
+device: on a CUDA tensor :func:`luminance_scattering_integral` and
+:func:`_scattering_integral_components` launch ``csrc/scattering.cu``,
+one thread per ray, bitwise :func:`luminance_scattering_integral_plain`
+and :func:`_scattering_integral_components_plain`; on the CPU they run
+those. On the card, inputs that need a gradient get the plain version's.
+:data:`LAUNCHES` counts the kernel's launches and the rays they
+integrated.
 """
 
 from __future__ import annotations
@@ -17,6 +26,9 @@ from typing import NamedTuple
 
 import torch
 
+from syzygy_tpu_torch.kernels import build
+from syzygy_tpu_torch.kernels.plain_gradient import PlainGradient, grad_leaves
+from syzygy_tpu_torch.kernels.raster import LaunchCounts
 from syzygy_tpu_torch.math.geometry import dot3_fma, fma32, sqrt_rn, vec_norm
 from syzygy_tpu_torch.scene.atmosphere import AtmospherePacked
 
@@ -363,10 +375,10 @@ def _march_step(atmo, lut, origin, i, scattering_dir, origin_step, d_sample, up,
     return ext, t_sun, integral, t_begin
 
 
-def luminance_scattering_integral(atmo, lut, origin, direction, sample_distance):
+def luminance_scattering_integral_plain(atmo, lut, origin, direction, sample_distance):
     """``computeLuminanceScatteringIntegral`` (``common.glinl:363-424``)
     with the step-invariant origin-side transmittance hoisted
-    (``atmosphere.py:423-492``)."""
+    (``atmosphere.py:423-492``), in tensor operations."""
     setup = _march_setup(atmo, lut, origin, direction, sample_distance)
     scattering_dir = setup[0]
     incident_cos = torch.sum(atmo.incident_direction_sun * scattering_dir, dim=-1)
@@ -409,9 +421,10 @@ def luminance_scattering_integral_fast(atmo, lut, origin, direction, sample_dist
     return luminance
 
 
-def _scattering_integral_components(atmo, lut, origin, direction, sample_distance):
+def _scattering_integral_components_plain(atmo, lut, origin, direction, sample_distance):
     """The integral with the phase functions factored out
-    (``atmosphere.py:615-683``): (A_rayleigh, A_mie)."""
+    (``atmosphere.py:615-683``): (A_rayleigh, A_mie), in tensor
+    operations."""
     setup = _march_setup(atmo, lut, origin, direction, sample_distance)
     acc_r = torch.zeros((*sample_distance.shape, 3), dtype=F32, device=origin.device)
     acc_m = torch.zeros_like(acc_r)
@@ -421,6 +434,136 @@ def _scattering_integral_components(atmo, lut, origin, direction, sample_distanc
         acc_r = acc_r + ext.scattering_rayleigh * common
         acc_m = acc_m + ext.scattering_mie * common
     return acc_r, acc_m
+
+
+class LaunchCount(LaunchCounts):
+    """Scattering kernel launches and the rays they integrated, counted by
+    :func:`luminance_scattering_integral` and
+    :func:`_scattering_integral_components` where they launch the CUDA
+    kernel and nowhere else (a frame replayed from a CUDA graph adds the
+    launches it holds, ``renderer/frame.py``)."""
+
+    KINDS = ("scattering", "scattering_rays")
+
+    def reset(self) -> None:
+        self.scattering = 0
+        self.scattering_rays = 0
+
+
+LAUNCHES = LaunchCount()
+# the atmosphere's values that csrc/scattering.cu reads, in its order
+_TABLE_FIELDS = (
+    ("planet_radius_mm", 1), ("atmosphere_radius_mm", 1), ("density_scale_rayleigh_mm", 1),
+    ("density_scale_mie_mm", 1), ("scattering_rayleigh_per_mm", 3), ("absorption_rayleigh_per_mm", 3),
+    ("scattering_mie_per_mm", 3), ("scattering_ozone_per_mm", 3), ("absorption_ozone_per_mm", 3),
+    ("incident_direction_sun", 3),
+)
+
+
+def scattering_table(atmo: AtmospherePacked) -> torch.Tensor:
+    """What the kernel reads of the atmosphere, (25,) f32 on its device:
+    the values of ``_TABLE_FIELDS`` in order, then ``sin`` and ``cos`` of
+    ``sun_angular_radius`` and ``vec_norm(incident_direction_sun)``, each
+    the plain version's own tensor operation (the kernel computes the
+    rest from these)."""
+    parts = []
+    for name, size in _TABLE_FIELDS:
+        value = getattr(atmo, name)
+        if value.numel() != size:
+            raise ValueError(f"atmosphere field {name} holds {value.numel()} values, the kernel reads {size}")
+        parts.append(value.reshape(-1))
+    sun = atmo.incident_direction_sun
+    radius = atmo.sun_angular_radius.reshape(-1)
+    parts += [torch.sin(radius), torch.cos(radius), vec_norm(sun).reshape(-1)]
+    return torch.cat(parts).to(F32)
+
+
+def _rays(origin, direction, sample_distance):
+    """The integral's rays as the kernel reads them: (origin, its stride,
+    directions (N, 3), distances (N,), the rays' batch shape). An origin
+    that broadcasts to one value over the batch is passed once (stride
+    0), any other as (N, 3) (stride 3); all f32."""
+    for what, t in (("origin", origin), ("direction", direction), ("sample_distance", sample_distance)):
+        if t.dtype != F32:
+            raise ValueError(f"the integral's {what} must be float32, got {t.dtype}")
+    if origin.dim() < 1 or origin.shape[-1] != 3 or direction.dim() < 1 or direction.shape[-1] != 3:
+        raise ValueError(
+            f"origin and direction must end in 3 components, got {tuple(origin.shape)} and {tuple(direction.shape)}"
+        )
+    try:
+        batch = torch.broadcast_shapes(origin.shape[:-1], direction.shape[:-1], sample_distance.shape)
+    except RuntimeError as e:
+        raise ValueError(
+            f"origin {tuple(origin.shape)}, direction {tuple(direction.shape)} and sample_distance "
+            f"{tuple(sample_distance.shape)} do not broadcast: {e}"
+        ) from None
+    origin = origin.expand(*batch, 3)
+    if all(s == 0 or n == 1 for s, n in zip(origin.stride()[:-1], batch)):
+        origin, stride = origin[(0,) * len(batch)].contiguous(), 0
+    else:
+        origin, stride = origin.reshape(-1, 3).contiguous(), 3
+    direction = direction.expand(*batch, 3).reshape(-1, 3).contiguous()
+    distance = sample_distance.expand(batch).reshape(-1).contiguous()
+    return origin, stride, direction, distance, batch
+
+
+def _launch_kernel(components: bool, atmo, lut, origin, direction, sample_distance):
+    """Launch ``csrc/scattering.cu`` over the rays: (A_r, A_m) with
+    ``components``, else the luminance, each (*batch, 3)."""
+    origin, stride, direction, distance, batch = _rays(origin, direction, sample_distance)
+    if lut.dtype != F32 or lut.dim() != 3 or lut.shape[-1] != 3:
+        raise ValueError(f"the transmittance LUT must be an (H, W, 3) float32 tensor, got {tuple(lut.shape)} {lut.dtype}")
+    lut = lut.contiguous()
+    table = scattering_table(atmo)
+    dev = lut.device
+    if any(t.device != dev for t in (origin, direction, distance, table)):
+        raise ValueError("the rays, the atmosphere and the transmittance LUT must be on one device")
+    n = distance.numel()
+    out0 = torch.empty((n, 3), dtype=F32, device=dev)
+    out1 = torch.empty((n, 3), dtype=F32, device=dev) if components else None
+    if n:
+        err = build.load("scattering").szg_scattering(
+            origin.data_ptr(), stride, direction.data_ptr(), distance.data_ptr(), lut.data_ptr(), lut.shape[0],
+            lut.shape[1], table.data_ptr(), out0.data_ptr(), None if out1 is None else out1.data_ptr(), n,
+            int(components), dev.index, torch._C._cuda_getCurrentRawStream(dev.index),
+        )
+        if err != 0:
+            raise RuntimeError(f"scattering kernel launch failed: CUDA error {err}")
+        LAUNCHES.scattering += 1
+        LAUNCHES.scattering_rays += n
+    if components:
+        return out0.reshape(*batch, 3), out1.reshape(*batch, 3)
+    return out0.reshape(*batch, 3)
+
+
+def _integral(components: bool, atmo, lut, origin, direction, sample_distance):
+    """The plain version on the CPU; on the card the kernel, with the plain
+    version's gradient where autograd needs the inputs."""
+    plain = _scattering_integral_components_plain if components else luminance_scattering_integral_plain
+    args = (atmo, lut, origin, direction, sample_distance)
+    if lut.device.type != "cuda":
+        return plain(*args)
+
+    def kernel():
+        with torch.no_grad():
+            return _launch_kernel(components, *args)
+
+    needs = grad_leaves(args) if torch.is_grad_enabled() else []
+    return PlainGradient.apply(kernel, plain, args, *needs) if needs else kernel()
+
+
+def luminance_scattering_integral(atmo, lut, origin, direction, sample_distance):
+    """:func:`luminance_scattering_integral_plain`'s luminance, with its
+    signature and its bits: on a CUDA LUT one launch of
+    ``csrc/scattering.cu``, one thread per ray; CPU tensors take the
+    plain version."""
+    return _integral(False, atmo, lut, origin, direction, sample_distance)
+
+
+def _scattering_integral_components(atmo, lut, origin, direction, sample_distance):
+    """:func:`_scattering_integral_components_plain`'s (A_rayleigh,
+    A_mie), dispatched as :func:`luminance_scattering_integral`."""
+    return _integral(True, atmo, lut, origin, direction, sample_distance)
 
 
 def compute_transmittance_lut(atmo: AtmospherePacked, width: int, height: int):

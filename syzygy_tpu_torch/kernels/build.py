@@ -31,6 +31,8 @@ SOURCES = {
     # the lighting rounds every operation as the plain version's PyTorch
     # operations do (__fmul_rn/__fadd_rn) and must contract nothing
     "lighting": ("--fmad=false",),
+    # the in-scattering integral likewise
+    "scattering": ("--fmad=false",),
     "gather": (),
     "stamp": (),
 }
@@ -46,6 +48,9 @@ ENTRY_POINTS = {
     "lighting": {
         "szg_lighting": ([_P] * 7 + [_P] * 3 + [_I] * 3 + [_P] + [_I] * 2 + [_P] * 3 + [_I] + [_P] * 3 + [_LL, _I, _P], _I),
     },
+    # origin, origin_stride, direction, distance, lut, lut_h, lut_w, table,
+    # out0, out1, n, components, device, stream
+    "scattering": {"szg_scattering": ([_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _LL, _I, _I, _P], _I)},
     # table, table_n, idx, out, n, device, stream
     "gather": {"szg_lane_gather": ([_P, _LL, _P, _P, _LL, _I, _P], _I)},
     # ring, seq, rows, stride, mark, last, device, stream | stream, nodes

@@ -30,6 +30,7 @@ import torch
 
 from syzygy_tpu_torch.device import constant
 from syzygy_tpu_torch.kernels import build
+from syzygy_tpu_torch.kernels.plain_gradient import PlainGradient, grad_leaves
 from syzygy_tpu_torch.kernels.raster import LaunchCounts
 from syzygy_tpu_torch.kernels.resolve import GBuffer
 from syzygy_tpu_torch.math.geometry import matmul4, matvec, sqrt_rn, vec_norm, world_up
@@ -508,49 +509,6 @@ def _launch_kernel(gbuffer, camera, directional, spots, shadow_maps, shadowless_
     return out
 
 
-def _swap(x, table: dict):
-    """``x`` (a tensor, a NamedTuple of tensors or anything else) with each
-    tensor whose id is in ``table`` replaced by its value there."""
-    if isinstance(x, torch.Tensor):
-        return table.get(id(x), x)
-    if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*[_swap(v, table) for v in x])
-    return x
-
-
-def _grad_leaves(args) -> list:
-    """The tensors in ``args`` (tensors and NamedTuples of them) that
-    autograd needs, each once."""
-    found = {}
-    for x in args:
-        for t in (x if isinstance(x, tuple) else (x,)):
-            if isinstance(t, torch.Tensor) and t.requires_grad:
-                found[id(t)] = t
-    return list(found.values())
-
-
-class _PlainGradient(torch.autograd.Function):
-    """The kernel's lighting forward, and the plain version's gradient:
-    the backward recomputes :func:`deferred_lighting_plain` on detached
-    copies of the inputs that need a gradient and differentiates that."""
-
-    @staticmethod
-    def forward(ctx, kernel, plain, args, *needs):
-        ctx.plain, ctx.args = plain, args
-        ctx.save_for_backward(*needs)
-        return kernel()
-
-    @staticmethod
-    def backward(ctx, grad):
-        detached = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        # _grad_leaves gives the args' own tensors in the order of `needs`
-        table = {id(t): d for t, d in zip(_grad_leaves(ctx.args), detached)}
-        with torch.enable_grad():
-            lit = ctx.plain(*[_swap(x, table) for x in ctx.args])
-        grads = torch.autograd.grad(lit, detached, grad, allow_unused=True)
-        return (None, None, None, *grads)
-
-
 def deferred_lighting(
     gbuffer: GBuffer,
     camera: CameraPacked,
@@ -574,7 +532,7 @@ def deferred_lighting(
     :func:`light_activity` marks live evaluated (in the plain version's
     order), their per-slot inputs packed by :func:`light_table`, q8 maps'
     segments by :func:`q8_tables`. Where autograd needs the inputs, the
-    gradient is the plain version's (:class:`_PlainGradient`). CPU tensors
+    gradient is the plain version's (:class:`PlainGradient`). CPU tensors
     take :func:`deferred_lighting_plain`."""
     args = (
         gbuffer, camera, directional, directional_count, directional_skip, spots, spot_count, shadow_maps,
@@ -603,5 +561,5 @@ def deferred_lighting(
                 pcf_f16 and small, pcf_q8 and small, sun_shadow,
             )
 
-    needs = _grad_leaves(args) if torch.is_grad_enabled() else []
-    return _PlainGradient.apply(kernel, plain, args, *needs) if needs else kernel()
+    needs = grad_leaves(args) if torch.is_grad_enabled() else []
+    return PlainGradient.apply(kernel, plain, args, *needs) if needs else kernel()

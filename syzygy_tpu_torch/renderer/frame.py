@@ -53,7 +53,7 @@ from syzygy_tpu_torch.kernels.atmosphere import (
     pack_lut_q8,
 )
 from syzygy_tpu_torch.kernels.debuglines import draw_lines
-from syzygy_tpu_torch.kernels import lighting
+from syzygy_tpu_torch.kernels import atmosphere, lighting
 from syzygy_tpu_torch.kernels.lighting import convert_pbr, deferred_lighting, directional_pcf, light_activity
 from syzygy_tpu_torch.kernels.raster import LAUNCHES, TILE_H, TILE_W, rasterize, setup_triangles
 from syzygy_tpu_torch.kernels.resolve import (
@@ -557,7 +557,7 @@ class _FrameGraph:
 
 
 _GRAPHS: collections.OrderedDict = collections.OrderedDict()
-_COUNTERS = (LAUNCHES, lighting.LAUNCHES)  # the kernel launches a graph holds, by kind
+_COUNTERS = (LAUNCHES, lighting.LAUNCHES, atmosphere.LAUNCHES)  # the kernel launches a graph holds, by kind
 _CAPTURE_STREAMS: dict = {}
 _STAGING: dict = {}
 
@@ -597,7 +597,8 @@ def _stage(buffer, row: torch.Tensor) -> None:
 def captured_frames() -> list[dict]:
     """What each cached CUDA graph holds: its config, the host seconds
     its capture took, the bytes its capture added to the device's
-    reserved memory (its pool), its raster and lighting kernel launches,
+    reserved memory (its pool), its raster, lighting and scattering kernel
+    launches (and the rays the scattering launches integrate),
     its ``layers`` in frame order, its ``nodes`` (each layer's, ``stamps``
     and ``total``), its ``replays`` so far, ``read``: a function that
     returns the finished replays' :class:`layers.Replay` records (layer

@@ -33,7 +33,7 @@ import pytest
 import torch
 
 from syzygy_tpu_torch.bench import all_slots_live
-from syzygy_tpu_torch.kernels import lighting
+from syzygy_tpu_torch.kernels import lighting, plain_gradient
 from syzygy_tpu_torch.kernels.lighting import (
     LAUNCHES,
     TABLE_STRIDE,
@@ -225,9 +225,9 @@ def test_card_gradient_is_the_plain_versions():
         with torch.no_grad():
             return plain(*every)
 
-    needs = lighting._grad_leaves(every)
+    needs = plain_gradient.grad_leaves(every)
     assert [id(t) for t in needs] == [id(normal), id(color), id(strength), id(sun)]
-    lit = lighting._PlainGradient.apply(kernel, plain, every, *needs)
+    lit = plain_gradient.PlainGradient.apply(kernel, plain, every, *needs)
     weights = torch.rand(lit.shape, generator=torch.Generator().manual_seed(4))
     got = torch.autograd.grad((lit * weights).sum(), needs)
     want = torch.autograd.grad((plain(*every) * weights).sum(), needs)

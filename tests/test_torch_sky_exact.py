@@ -93,6 +93,47 @@ def test_fast_integral_matches_reference():
     np.testing.assert_allclose(out, ref, atol=LUT_ATOL, rtol=LUT_RTOL)
 
 
+@pytest.mark.parametrize("form", ["luminance", "components"])
+def test_plain_lut_ratio_integral_matches_reference(form):
+    """``luminance_scattering_integral_plain`` and
+    ``_scattering_integral_components_plain`` (the forms the CUDA kernel is
+    held to bitwise on the card) on seeded rays: from the camera's origin
+    (upward, grazing and ground-hitting) and from seeded surface points
+    16 m to 3 km up (one origin a ray), with one ray in eight at distance
+    0 and one in eight with steps under 1e-7: the reference's op-by-op
+    value (the same float32 formulas), LUT class."""
+    from syzygy_tpu.kernels import atmosphere as ref_atmosphere
+
+    from syzygy_tpu_torch.kernels import atmosphere as port
+
+    atmo, port_atmo, t_lut, origin = atmosphere_inputs()
+    rng = np.random.default_rng(17)
+    direction = rng.normal(size=(16, 32, 3)).astype(np.float32)
+    direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
+    up = np.float32(atmo.planet_radius_mm) + rng.uniform(16e-6, 3e-3, (8, 32)).astype(np.float32)
+    o = np.concatenate([
+        np.broadcast_to(origin, (8, 32, 3)),
+        np.stack([rng.uniform(-1e-4, 1e-4, (8, 32)), up, rng.uniform(-1e-4, 1e-4, (8, 32))], -1),
+    ]).astype(np.float32)
+    dist = np.asarray(ref_atmosphere.raycast_atmosphere(atmo, jnp.asarray(o), jnp.asarray(direction)))
+    which = np.arange(32) % 8
+    dist = np.where(which == 3, np.float32(0.0), dist)
+    dist = np.where(which == 5, rng.uniform(0.0, 32e-7, dist.shape).astype(np.float32), dist).astype(np.float32)
+    if form == "luminance":
+        ref_fn, port_fn = ref_atmosphere.luminance_scattering_integral, port.luminance_scattering_integral_plain
+    else:
+        ref_fn, port_fn = ref_atmosphere._scattering_integral_components, port._scattering_integral_components_plain
+    with jax.disable_jit():
+        ref = ref_fn(atmo, jnp.asarray(t_lut), jnp.asarray(o), jnp.asarray(direction), jnp.asarray(dist))
+    out = port_fn(port_atmo, t(t_lut), t(o), t(direction), t(dist))
+    ref, out = (ref, out) if form == "components" else ((ref,), (out,))
+    for r, p in zip(ref, out):
+        r, p = np.asarray(r), p.numpy()
+        assert p.shape == (16, 32, 3) and np.isfinite(p).all() and r.max() > 1e-4
+        assert not p[:, 3::8].any()
+        np.testing.assert_allclose(p, r, atol=LUT_ATOL, rtol=LUT_RTOL)
+
+
 @pytest.mark.parametrize("fast,rowwise", [(False, False), (True, True), (True, False)], ids=["texel", "fast", "fast_texel"])
 def test_skyview_lut_per_texel_matches_reference(fast, rowwise):
     """``compute_skyview_lut(fast=, rowwise=)`` at 64x32: LUT class."""
