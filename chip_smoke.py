@@ -47,8 +47,8 @@ no result line):
    frame: the sky-view rows, the per-pixel integral and the metallic
    bounce's), each with its launches, the kernel's device time, the whole
    call's, the plain version's and the operations bound;
-4. the main paths, each with the launch counters set to 0 just before and
-   read just after (the stamps', the lighting's and the scattering's too:
+4. the main paths, each with its kernel launches counted from just before
+   to just after (the stamps', the lighting's and the scattering's too:
    each replay launches those its graph holds): 4 frames of the default scene and 3 of the chess
    flagship through ``renderer.frame.render_frame`` at the default
    1920x1080 RenderConfig (CUDA-event ms/frame, peak memory); the chess
@@ -57,10 +57,10 @@ no result line):
    fast_sky_reflection=False``), 3 frames, held against
    ``tests/goldens/flagship_1080p.npz`` under that tool's verdict, then
    the same frame through ``render_frame_packed`` and as two row blocks
-   of ``render_frame_rows``, bitwise ``render_frame``'s; the port's
-   bench (``python -m syzygy_tpu_torch.bench``'s ``measure_scene``) on its
-   three scenes at 1920x1080, 8 timed frames each after the warm-up, each
-   last frame bitwise a direct ``render_frame_packed`` of its row; and the
+   of ``render_frame_rows``, bitwise ``render_frame``'s; ``bench.py``'s
+   three scenes at 1920x1080 through ``render_frame_packed``, 8 replayed
+   frames each after the capture, one camera raster a frame, each last
+   frame bitwise a direct ``render_frame_packed`` of its row; and the
    port's gather bench (``tools/gather_bench.py``, g1-g7) at its default
    size; the frame without a host sync (``dispatch``): the default (sun
    animated), dense, flagship and quirk-exact 1080p frames under
@@ -80,8 +80,7 @@ no result line):
    at that size also the mip-mapped resolve, the debug lines (with and
    without the atmosphere, and under supersample 2), the fast sky
    (with and without the aerial LUT), ``pcf_q8``, ``lut_f16``,
-   ``share_sun_pcf``, the layout-only modes together (``pcf_bitmask``,
-   ``pcf_window2d``, ``raster_unroll=False``) and ``shadow_dim=4096``,
+   ``share_sun_pcf`` and ``shadow_dim=4096``,
    card against the CPU port, each case's card ms/frame printed; for the
    plain and the 4096 case the sun's shadow lookup card against CPU stage
    by stage (visibility, G-buffer position and normal, shadow
@@ -89,8 +88,8 @@ no result line):
    taps must be what the CPU's code makes of the card's inputs), and two
    roundings on each device (``torch.sum``'s order over 3 terms, the
    PCF's division by 25);
-6. the app and the viewer, each a main path with the launch counters set
-   to 0 just before and read just after: ``python -m
+6. the app and the viewer, each a main path with its launches counted
+   from just before to just after: ``python -m
    syzygy_tpu_torch.app``'s ``main`` on the chess flagship at 1920x1080
    (4 orbiting frames, an input script, ``--set`` of a scene property
    and a config field, ``--save-scene``; ``--list-properties`` prints the
@@ -236,7 +235,7 @@ def default_scene_config(scene, library, **overrides):
 
 def flagship():
     """The chess flagship through the port's glTF path, framed as
-    ``python -m syzygy_tpu_torch.bench`` frames it (``bench.py:260-271``)."""
+    ``bench.py`` frames it (``bench.py:260-271``)."""
     from syzygy_tpu_torch.bench import chess_scene
 
     return chess_scene()
@@ -520,9 +519,8 @@ def phase_compare_gather(device):
 
 def phase_frames(name, scene, library, device, n_frames, warmup=1, dt_seconds=0.0):
     """A main path: ``n_frames`` frames through render_frame at the default
-    1920x1080 RenderConfig, the raster launch counts set to 0 before and
-    read after."""
-    from syzygy_tpu_torch.kernels.raster import LAUNCHES
+    1920x1080 RenderConfig, its raster launches counted."""
+    from syzygy_tpu_torch.kernels.build import LAUNCHES
     from syzygy_tpu_torch.renderer.frame import render_frame
     from syzygy_tpu_torch.scene.pack import pack_frame_params, pack_geometry, upload_frame_params
 
@@ -531,17 +529,18 @@ def phase_frames(name, scene, library, device, n_frames, warmup=1, dt_seconds=0.
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     times, counts = [], []
-    LAUNCHES.reset()
+    first = LAUNCHES.copy()
     for frame in range(n_frames):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        before = (LAUNCHES.visibility, LAUNCHES.depth)
+        before = LAUNCHES.copy()
         start.record()
         params = upload_frame_params(pack_frame_params(scene, config.width / config.height), device)
         image = render_frame(geometry, params, config)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-        counts.append((LAUNCHES.visibility - before[0], LAUNCHES.depth - before[1]))
+        made = LAUNCHES - before
+        counts.append((made["visibility"], made["depth"]))
         check(tuple(image.shape) == (config.height, config.width, 3), f"{name} frame shape {tuple(image.shape)}")
         check(bool(torch.isfinite(image).all()), f"{name} frame {frame} has non-finite values")
         check(float(image.min()) >= 0.0 and float(image.max()) <= 1.0, f"{name} frame {frame} outside [0, 1]")
@@ -559,7 +558,7 @@ def phase_frames(name, scene, library, device, n_frames, warmup=1, dt_seconds=0.
         "metallic_reflection": config.metallic_reflection,
         "median_ms_per_frame": statistics.median(times[warmup:]),
         "ms_per_frame": times,
-        "launches": {"visibility": LAUNCHES.visibility, "depth": LAUNCHES.depth},
+        "launches": {kind: (LAUNCHES - first)[kind] for kind in ("visibility", "depth")},
         "peak_mem_bytes": int(torch.cuda.max_memory_allocated(device)),
         "resolution": [config.width, config.height],
     }
@@ -569,13 +568,14 @@ def phase_frames(name, scene, library, device, n_frames, warmup=1, dt_seconds=0.
 
 def phase_gather_bench():
     """The port's gather bench at its default size, the lane gather's
-    launch count set to 0 before and read after."""
+    launches counted."""
     from syzygy_tpu_torch.kernels import gather
+    from syzygy_tpu_torch.kernels.build import LAUNCHES
     from syzygy_tpu_torch.tools import gather_bench as bench
 
-    gather.LAUNCHES.reset()
+    before = LAUNCHES.copy()
     result = bench.main([])
-    launches = gather.LAUNCHES.lane_gather
+    launches = (LAUNCHES - before)["lane_gather"]
     forms = result["forms"]
     check(sorted(forms) == [f"g{i}" for i in range(1, 8)], f"gather bench ran {sorted(forms)}")
     check(all(f["ms"] > 0 and f["checksum"] == f["checksum"] for f in forms.values()), "gather bench: bad timing/checksum")
@@ -673,8 +673,7 @@ def phase_flagship_1080p(device, n_frames=3):
     """The quirk-exact main path at full size: the chess flagship at
     1920x1080 in ``tools/parity_1080p.py``'s configuration with the f32
     storage of the golden's date (``GOLDEN_STORAGE``, an f32 atlas), a few
-    frames on the card, the launch counts set to 0 before them and read
-    straight after, the last frame held against ``flagship_1080p.npz``
+    frames on the card, their raster launches counted, the last frame held against ``flagship_1080p.npz``
     (that tool's CPU render of the JAX package, u16) under its verdict.
     Then, each with a count of its own that stays out of the main path's:
     the same frame through ``render_frame_packed`` and as two stacked
@@ -683,7 +682,7 @@ def phase_flagship_1080p(device, n_frames=3):
     under today's default storage (f16 PCF and atlas, q8 sky-view)."""
     import numpy as np
 
-    from syzygy_tpu_torch.kernels.raster import LAUNCHES
+    from syzygy_tpu_torch.kernels.build import LAUNCHES
     from syzygy_tpu_torch.renderer.frame import (
         RenderConfig,
         render_frame,
@@ -716,31 +715,33 @@ def phase_flagship_1080p(device, n_frames=3):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    LAUNCHES.reset()
+    first = LAUNCHES.copy()
     times = []
     for frame in range(n_frames):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        before = (LAUNCHES.visibility, LAUNCHES.depth)
+        before = LAUNCHES.copy()
         start.record()
         image = render_frame(geometry, upload_frame_params(host, device), config)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-        counts = (LAUNCHES.visibility - before[0], LAUNCHES.depth - before[1])
+        made = LAUNCHES - before
+        counts = (made["visibility"], made["depth"])
         check(counts[0] == 1 and counts[1] >= 1, f"flagship_1080p frame {frame} launched {counts}")
         print(f"flagship_1080p frame {frame}: {times[-1]:.3f} ms, launches camera={counts[0]} shadow={counts[1]}", flush=True)
-    launches = {"visibility": LAUNCHES.visibility, "depth": LAUNCHES.depth}
+    launches = {kind: (LAUNCHES - first)[kind] for kind in ("visibility", "depth")}
     peak = int(torch.cuda.max_memory_allocated(device))
     check(tuple(image.shape) == (config.height, config.width, 3), f"flagship_1080p shape {tuple(image.shape)}")
     check(bool(torch.isfinite(image).all()), "flagship_1080p frame has non-finite values")
 
     def counted(render):
         """``render()`` and the raster launches it made."""
-        LAUNCHES.reset()
+        before = LAUNCHES.copy()
         out = render()
         torch.cuda.synchronize()
-        check(LAUNCHES.visibility >= 1 and LAUNCHES.depth >= 1, f"1080p: launched {LAUNCHES.visibility}, {LAUNCHES.depth}")
-        return out, {"visibility": LAUNCHES.visibility, "depth": LAUNCHES.depth}
+        made = {kind: (LAUNCHES - before)[kind] for kind in ("visibility", "depth")}
+        check(made["visibility"] >= 1 and made["depth"] >= 1, f"1080p: launched {made}")
+        return out, made
 
     spec = frame_param_spec(host)
     packed, packed_launches = counted(
@@ -800,16 +801,15 @@ def phase_feature_frames(device):
     mip-mapped resolve, the debug lines (with the atmosphere, without it,
     and under supersample 2), the fast sky with and without the aerial
     LUT, the u8 PCF segments, the f16 sky LUT copies, the shared sun PCF,
-    the layout-only PCF and raster modes together, and 4096-texel shadow
-    maps (the depth raster at 4096^2, the direct f32 PCF). The mip, fast
-    sky, q8 and f16-LUT frames must differ from the plain frame (the
-    feature is live); the shared sun PCF and the layout-only modes must
-    equal it bitwise. Each case's card frame time (CUDA events, mean of
+    and 4096-texel shadow maps (the depth raster at 4096^2, the direct
+    f32 PCF). The mip, fast sky, q8 and f16-LUT frames must differ from
+    the plain frame (the feature is live); the shared sun PCF must equal
+    it bitwise. Each case's card frame time (CUDA events, mean of
     ``FEATURE_REPS`` after one warm-up) and raster launches per frame are
     printed beside the card's name and power limit."""
     import numpy as np
 
-    from syzygy_tpu_torch.kernels.raster import LAUNCHES
+    from syzygy_tpu_torch.kernels.build import LAUNCHES
     from syzygy_tpu_torch.renderer.frame import RenderConfig, render_frame
     from syzygy_tpu_torch.scene.pack import pack_frame_params, pack_geometry, upload_frame_params
 
@@ -827,7 +827,6 @@ def phase_feature_frames(device):
         "pcf_q8": dict(pcf_q8=True),
         "lut_f16": dict(lut_f16=True),
         "share_sun_pcf": dict(share_sun_pcf=True),
-        "layout_only": dict(pcf_bitmask=True, pcf_window2d=True, raster_unroll=False),
         "shadow_dim_4096": dict(shadow_dim=4096),
     }
     results, frames, card_ms = {}, {}, {}
@@ -839,15 +838,13 @@ def phase_feature_frames(device):
             geometry = pack_geometry(scene, library, dev, mipmaps=(name == "mipmaps"))
             out[dev.type] = render_frame(geometry, upload_frame_params(host, dev), config).cpu().numpy()
             if dev.type == "cuda":
-                before = (LAUNCHES.visibility, LAUNCHES.depth)
+                before = LAUNCHES.copy()
                 ms = time_ms(lambda: render_frame(geometry, upload_frame_params(host, dev), config), FEATURE_REPS)
                 frames_run = FEATURE_REPS + 1  # the warm-up launches too
+                made = LAUNCHES - before
                 card_ms[name] = {
                     "ms_per_frame": ms,
-                    "launches_per_frame": {
-                        "visibility": (LAUNCHES.visibility - before[0]) / frames_run,
-                        "depth": (LAUNCHES.depth - before[1]) / frames_run,
-                    },
+                    "launches_per_frame": {kind: made[kind] / frames_run for kind in ("visibility", "depth")},
                 }
         check(out["cuda"].shape == (config.height, config.width, 3), f"{name}: shape {out['cuda'].shape}")
         check(bool(np.isfinite(out["cuda"]).all()), f"{name}: non-finite values")
@@ -875,9 +872,8 @@ def phase_feature_frames(device):
     for name in ("mipmaps", "fast_sky", "fast_sky_exact", "pcf_q8", "lut_f16"):
         results[name]["rmse_vs_plain"] = float(np.sqrt(np.mean((frames[name] - frames["plain"]) ** 2)))
         check(results[name]["rmse_vs_plain"] > 0.0, f"{name}: the frame equals the plain one")
-    for name in ("share_sun_pcf", "layout_only"):
-        results[name]["bitwise_plain"] = bool(np.array_equal(frames[name], frames["plain"]))
-        check(results[name]["bitwise_plain"], f"{name}: the card frame differs from the plain card frame")
+    results["share_sun_pcf"]["bitwise_plain"] = bool(np.array_equal(frames["share_sun_pcf"], frames["plain"]))
+    check(results["share_sun_pcf"]["bitwise_plain"], "share_sun_pcf: the card frame differs from the plain card frame")
     check(card_ms["shadow_dim_4096"]["launches_per_frame"]["depth"] >= 1, "shadow_dim_4096: no depth raster launched")
     print(f"feature_frames card ms ({nvidia_smi_line()}) " + json.dumps(card_ms), flush=True)
     print("feature_frames arithmetic " + json.dumps(arithmetic_probe(device)), flush=True)
@@ -1039,6 +1035,7 @@ def phase_compare_lighting(device):
     likewise; the bytes bound (:func:`lighting_bytes` at the HBM rate)."""
     from syzygy_tpu_torch.bench import all_slots_live, chess_scene, default_scene_animated
     from syzygy_tpu_torch.kernels import lighting as L
+    from syzygy_tpu_torch.kernels.build import LAUNCHES
     from syzygy_tpu_torch.renderer.frame import RenderConfig, _geometry
     from syzygy_tpu_torch.scene.pack import pack_frame_params, pack_geometry, upload_frame_params
 
@@ -1059,9 +1056,9 @@ def phase_compare_lighting(device):
                 lights, maps = all_slots_live(state, maps)
             args = (gbuffer, state.camera, *lights.values(), maps)
             flags = dict(pcf_f16=config.pcf_f16, pcf_q8=q8, shadowless_eps=eps)
-            L.LAUNCHES.reset()
+            before = LAUNCHES.copy()
             kern = L.deferred_lighting(*args, **flags)
-            launches = L.LAUNCHES.lighting
+            launches = (LAUNCHES - before)["lighting"]
             plain = L.deferred_lighting_plain(*args, **flags)
             torch.cuda.synchronize()
             differ = int((kern != plain).any(dim=-1).sum())
@@ -1145,6 +1142,7 @@ def phase_compare_scattering(device):
     from frame_bench.aerial_work import OPS_PER_STEP, STEPS
     from syzygy_tpu_torch.bench import chess_scene, default_scene_animated
     from syzygy_tpu_torch.kernels import atmosphere as A
+    from syzygy_tpu_torch.kernels.build import LAUNCHES
     from syzygy_tpu_torch.renderer.frame import RenderConfig
 
     plain_of = {True: A._scattering_integral_components_plain, False: A.luminance_scattering_integral_plain}
@@ -1158,9 +1156,10 @@ def phase_compare_scattering(device):
         for name, (components, args) in zip(names, calls):
             plain = plain_of[components]
             with torch.no_grad():
-                A.LAUNCHES.reset()
+                before = LAUNCHES.copy()
                 kern = A._integral(components, *args)
-                launches, rays = A.LAUNCHES.scattering, A.LAUNCHES.scattering_rays
+                made = LAUNCHES - before
+                launches, rays = made["scattering"], made["scattering_rays"]
                 want = plain(*args)
                 torch.cuda.synchronize()
                 kern, want = (kern, want) if components else ((kern,), (want,))
@@ -1189,7 +1188,7 @@ def phase_compare_scattering(device):
     return reports
 
 
-BENCH_FRAMES, BENCH_GROUP = 8, 4  # timed frames per scene and frames per group in phase_bench
+BENCH_FRAMES = 8  # replayed frames per scene in phase_bench
 
 
 def phase_compare_stamp(device):
@@ -1241,46 +1240,51 @@ def phase_compare_stamp(device):
 
 
 def phase_bench(device):
-    """A main path: ``python -m syzygy_tpu_torch.bench``'s ``measure_scene``
-    on its three scenes (the default scene with the sun animated, the
-    dense field, the chess flagship) at the default 1920x1080
-    RenderConfig, ``BENCH_FRAMES`` timed frames in groups of
-    ``BENCH_GROUP`` after the warm-up, the raster launch counts set to 0
-    before each scene and read after. Every group time must be finite and
-    positive, every timed frame must launch one camera raster and at
-    least one shadow raster, and the last frame must be bitwise a direct
-    ``render_frame_packed`` of its row."""
-    import dataclasses
-
+    """A main path: ``bench.py``'s three scenes (the default scene with the
+    sun animated, the dense field, the chess flagship) at the default
+    1920x1080 RenderConfig through ``render_frame_packed``: the capturing
+    call on the first row, then ``BENCH_FRAMES`` replays of the next rows
+    (uploaded in one stacked copy), timed by CUDA events. Every replayed
+    frame must launch one camera raster and at least one shadow raster
+    (``kernels.build.LAUNCHES``), and the last frame must be bitwise a
+    direct ``render_frame_packed`` of its row."""
     from syzygy_tpu_torch import bench
-    from syzygy_tpu_torch.kernels.raster import LAUNCHES
+    from syzygy_tpu_torch.kernels.build import LAUNCHES
     from syzygy_tpu_torch.renderer.frame import RenderConfig, render_frame_packed
     from syzygy_tpu_torch.scene.pack import pack_geometry, scene_uses_metallic
 
-    config = RenderConfig(width=1920, height=1080)
     scenes = {"default": bench.default_scene_animated, "dense": bench.dense_scene, "chess": bench.chess_scene}
     report = {"nvidia_smi": nvidia_smi_line(), "scenes": {}, "launches": {"visibility": 0, "depth": 0}}
     for name, make in scenes.items():
         scene, library = make()
-        LAUNCHES.reset()
-        timing = bench.measure_scene(scene, library, config, device, frames=BENCH_FRAMES, group=BENCH_GROUP)
-        launches = {"visibility": LAUNCHES.visibility, "depth": LAUNCHES.depth}
+        # the bounce multiplies to exactly zero without metallic materials
+        config = RenderConfig(width=1920, height=1080, metallic_reflection=scene_uses_metallic(scene, library))
+        geometry = pack_geometry(scene, library, device)
+        spec, rows = bench.pack_rows(scene, config.width / config.height, BENCH_FRAMES)
+        stacked = torch.from_numpy(rows).to(device)
+        render_frame_packed(geometry, stacked[0], spec, config)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        before = LAUNCHES.copy()
+        start.record()
+        for row in stacked[1:]:
+            frame = render_frame_packed(geometry, row, spec, config)
+        end.record()
+        torch.cuda.synchronize()
+        made = LAUNCHES - before
+        launches = {kind: made[kind] for kind in ("visibility", "depth")}
         for kind in launches:
             report["launches"][kind] += launches[kind]
-        frame = timing.last_frame
         check(tuple(frame.shape) == (config.height, config.width, 3), f"bench {name}: frame shape {tuple(frame.shape)}")
         check(bool(torch.isfinite(frame).all()), f"bench {name}: non-finite values")
-        check(len(timing.group_ms) == -(-BENCH_FRAMES // BENCH_GROUP), f"bench {name}: groups {timing.group_ms}")
-        check(all(t > 0.0 and t < float("inf") for t in timing.group_ms), f"bench {name}: group times {timing.group_ms}")
-        per_frame = timing.launches_per_frame
-        check(per_frame["visibility"] == 1.0 and per_frame["depth"] >= 1.0, f"bench {name}: launches {per_frame}")
-        direct_config = dataclasses.replace(config, metallic_reflection=scene_uses_metallic(scene, library))
-        direct = render_frame_packed(pack_geometry(scene, library, device), timing.last_row, timing.spec, direct_config)
+        check(launches["visibility"] == BENCH_FRAMES and launches["depth"] >= BENCH_FRAMES,
+              f"bench {name}: {BENCH_FRAMES} frames launched {launches}")
+        direct = render_frame_packed(pack_geometry(scene, library, device), rows[-1], spec, config)
         bitwise = bool(torch.equal(direct, frame))
         check(bitwise, f"bench {name}: frame {BENCH_FRAMES} differs from a direct render_frame_packed of its row")
         report["scenes"][name] = {
-            "ms_per_frame": timing.ms, "group_ms": timing.group_ms, "peak_bytes": timing.peak_bytes,
-            "launches_per_frame": per_frame, "launches": launches, "last_frame_bitwise_direct": bitwise,
+            "ms_per_frame": start.elapsed_time(end) / BENCH_FRAMES, "launches": launches,
+            "last_frame_bitwise_direct": bitwise,
         }
     print("bench " + json.dumps(report), flush=True)
     return report
@@ -1305,15 +1309,15 @@ def phase_dispatch(device):
     the dense frame at ``n_shadow_maps`` 10 and 2 in turns (10, 2, 2, 10):
     what each idle shadow slot costs. The full-iteration rasters (K3/K4)
     against their plain versions (the flagship and dense cameras and the
-    flagship sun), then its main path, with the launch counts set to 0
-    just before and read just after: flagship frames at
+    flagship sun), then its main path, with its launches counted from
+    just before to just after: flagship frames at
     ``tile_list_capacity=0`` (every raster by full iteration) and dense
     frames at capacity 1 (lists overflow, the device flag takes full
     iteration), each bitwise the default frame."""
     import dataclasses
 
     from syzygy_tpu_torch import bench
-    from syzygy_tpu_torch.kernels.raster import LAUNCHES
+    from syzygy_tpu_torch.kernels.build import LAUNCHES
     from syzygy_tpu_torch.renderer.frame import (
         RenderConfig,
         captured_frames,
@@ -1438,11 +1442,11 @@ def phase_dispatch(device):
     want_flagship = render_frame_packed(fgeo, frow, fspec, fcfg)
     want_dense = render_frame_packed(dgeo, drows[0], dspec, dcfg)
     torch.cuda.synchronize()
-    LAUNCHES.reset()
+    before = LAUNCHES.copy()
     full_frames = [render_frame_packed(fgeo, frow, fspec, dataclasses.replace(fcfg, tile_list_capacity=0)) for _ in range(2)]
     over_frames = [render_frame_packed(dgeo, drows[0], dspec, dataclasses.replace(dcfg, tile_list_capacity=1)) for _ in range(2)]
     torch.cuda.synchronize()
-    report["launches"] = LAUNCHES.snapshot()
+    report["launches"] = LAUNCHES - before
     report["capacity_0_bitwise_default"] = all(torch.equal(f, want_flagship) for f in full_frames)
     report["capacity_1_bitwise_default"] = all(torch.equal(f, want_dense) for f in over_frames)
     print("dispatch " + json.dumps({k: v for k, v in report.items() if k != "scenes"}), flush=True)
@@ -1478,8 +1482,8 @@ def phase_app(device, width=1920, height=1080):
     """A main path: ``python -m syzygy_tpu_torch.app`` (its ``main``) on the
     card, the chess flagship at 1920x1080, orbiting for 4 frames with a
     3-entry input script, a scene and a config ``--set``, the scene saved
-    at the end; the launch counts set to 0 just before and read just
-    after. Its ``--list-properties`` run prints the table. The last PNG
+    at the end; its launches counted from just before to just after.
+    Its ``--list-properties`` run prints the table. The last PNG
     must be bitwise a direct ``render_frame_packed`` of the saved scene
     after ``load_scene`` (meshes from the flagship's own, instance by
     instance) at the app's config."""
@@ -1491,7 +1495,7 @@ def phase_app(device, width=1920, height=1080):
 
     from syzygy_tpu_torch.app.__main__ import main as app_main
     from syzygy_tpu_torch.app.scenes import builtin_scene
-    from syzygy_tpu_torch.kernels.raster import LAUNCHES
+    from syzygy_tpu_torch.kernels.build import LAUNCHES
     from syzygy_tpu_torch.scene.serialize import load_scene, mesh_source_of
     from syzygy_tpu_torch.utils.png import read_png
 
@@ -1515,12 +1519,12 @@ def phase_app(device, width=1920, height=1080):
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
-        LAUNCHES.reset()
+        before = LAUNCHES.copy()
         t0 = time.perf_counter()
         result = app_main(args + ["--frames", str(APP_FRAMES), "--save-scene", saved])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"visibility": LAUNCHES.visibility, "depth": LAUNCHES.depth}
+        launches = {kind: (LAUNCHES - before)[kind] for kind in ("visibility", "depth")}
         peak = int(torch.cuda.max_memory_allocated(device))
 
         pngs = [read_png(p)[..., :3] for p in result["paths"]]
@@ -1567,11 +1571,11 @@ class _Viewer:
         import urllib.error
         import urllib.request
 
-        from syzygy_tpu_torch.kernels.raster import LAUNCHES
+        from syzygy_tpu_torch.kernels.build import LAUNCHES
 
         data = None if body is None else json.dumps(body).encode()
         req = urllib.request.Request(self.base + path, data=data, method=method)
-        before = (LAUNCHES.visibility, LAUNCHES.depth)
+        before = LAUNCHES.copy()
         t0 = time.perf_counter()
         try:
             with self.opener.open(req, timeout=120) as r:
@@ -1579,8 +1583,9 @@ class _Viewer:
         except urllib.error.HTTPError as e:
             code, payload = e.code, e.read()
         ms = (time.perf_counter() - t0) * 1e3
+        made = LAUNCHES - before
         entry = {"request": label or f"{method} {path}", "code": code, "ms": ms,
-                 "visibility": LAUNCHES.visibility - before[0], "depth": LAUNCHES.depth - before[1]}
+                 "visibility": made["visibility"], "depth": made["depth"]}
         self.log.append(entry)
         return code, payload, entry
 
@@ -1646,11 +1651,11 @@ def phase_viewer(device, width=1920, height=1080):
     """A main path: the interactive viewer (``app.serve.serve``) on a
     daemon thread, the chess flagship at the default 1920x1080
     RenderConfig on the card with preview_scale 2, driven over HTTP on
-    127.0.0.1 by a fixed script (the launch counts set to 0 just before
-    and read just after): the page and a cold frame, three rounds of fly
+    127.0.0.1 by a fixed script (its launches counted from just before
+    to just after): the page and a cold frame, three rounds of fly
     input and frames (960x540 previews, pipelined), the drain to the
     full-resolution refinement, property edits and a refused
-    ``config.raster_tile_h 0`` (4xx, config unchanged), the texture
+    ``config.tile_list_capacity -1`` (4xx, config unchanged), the texture
     inspector, two scene loads, and a final drained frame, which must be
     bitwise a direct ``render_frame_packed`` of the viewer's scene and
     config. Every request that rendered must have launched the camera
@@ -1660,7 +1665,7 @@ def phase_viewer(device, width=1920, height=1080):
     import numpy as np
 
     from syzygy_tpu_torch.app.serve import serve
-    from syzygy_tpu_torch.kernels.raster import LAUNCHES
+    from syzygy_tpu_torch.kernels.build import LAUNCHES
 
     scene, library = flagship()
     config = default_scene_config(scene, library, width=width, height=height)
@@ -1674,7 +1679,7 @@ def phase_viewer(device, width=1920, height=1080):
     )
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    LAUNCHES.reset()
+    first = LAUNCHES.copy()
     thread.start()
     v = _Viewer(port)
     for _ in range(600):  # the server is up once it answers the page
@@ -1699,15 +1704,15 @@ def phase_viewer(device, width=1920, height=1080):
     check(previews >= 2, f"only {previews} preview frames of {width // 2}x{height // 2}")
 
     edits = {}
-    for path, value in (("camera.fov_degrees", "60"), ("config.n_shadow_maps", "4"), ("config.raster_tile_h", "0")):
+    for path, value in (("camera.fov_degrees", "60"), ("config.n_shadow_maps", "4"), ("config.tile_list_capacity", "-1")):
         edits[path] = v.json("POST", "/api/set", {"path": path, "value": value}, label=f"set {path}")
     check(edits["camera.fov_degrees"] == (200, {"value": "60"}), f"fov edit: {edits['camera.fov_degrees']}")
     check(edits["config.n_shadow_maps"] == (200, {"value": "4"}), f"n_shadow_maps edit: {edits['config.n_shadow_maps']}")
-    refused = edits["config.raster_tile_h"]
-    check(400 <= refused[0] < 500 and "error" in refused[1], f"config.raster_tile_h=0 answered {refused}")
+    refused = edits["config.tile_list_capacity"]
+    check(400 <= refused[0] < 500 and "error" in refused[1], f"config.tile_list_capacity=-1 answered {refused}")
     rows = {p["path"]: p["value"] for p in v.json("GET", "/api/properties")[1]}
-    check(rows["config.raster_tile_h"] == "64" and rows["config.n_shadow_maps"] == "4",
-          f"the refused edit changed the config: raster_tile_h {rows['config.raster_tile_h']}")
+    check(rows["config.tile_list_capacity"] == "448" and rows["config.n_shadow_maps"] == "4",
+          f"the refused edit changed the config: tile_list_capacity {rows['config.tile_list_capacity']}")
 
     code, textures = v.json("GET", "/api/textures")
     check(code == 200 and textures, "no textures listed")
@@ -1725,7 +1730,7 @@ def phase_viewer(device, width=1920, height=1080):
     final = v.drain("final")
     code, stats = v.json("GET", "/api/stats")
     check(final.shape == full, f"final frame {final.shape}")
-    launches = {"visibility": LAUNCHES.visibility, "depth": LAUNCHES.depth}
+    launches = {kind: (LAUNCHES - first)[kind] for kind in ("visibility", "depth")}
     peak = int(torch.cuda.max_memory_allocated(device))
 
     # stop the viewer: cached frames up to its frame limit
@@ -1820,8 +1825,8 @@ def phase_native():
 def phase_sharded(device, width=1920, height=1080):
     """``parallel/sharding.py`` on the card, each case a main path (each
     rank renders its batch twice, ``render_case(warm=True)``: the first
-    render timed apart; rank 0's raster launch counts are set to 0 just
-    before the second and read just after), each batch bitwise the direct
+    render timed apart; rank 0's raster launches counted over the
+    second), each batch bitwise the direct
     ``render_frame`` of its frames: world size 1 in this process, (dp=1,
     sp=1) on the chess flagship (``ranks.backend_for``'s backend: NCCL);
     then two ranks of a gloo group, started once for both cases
@@ -1908,7 +1913,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         import syzygy_tpu_torch
-        from syzygy_tpu_torch.kernels import atmosphere, build, lighting, stamp
+        from syzygy_tpu_torch.kernels import build
     except ImportError as e:
         print(f"FAIL: the syzygy_tpu_torch package is not beside this script ({e})", file=sys.stderr)
         return 1
@@ -1937,15 +1942,14 @@ def main() -> int:
     def main_path(name, fn, *args, **kwargs):
         """``timed``, with the stamp, lighting and scattering launches of
         the frames it runs (a replay launches those its graph holds)."""
-        stamp.LAUNCHES.reset()
-        lighting.LAUNCHES.reset()
-        atmosphere.LAUNCHES.reset()
+        before = build.LAUNCHES.copy()
         out = timed(name, fn, *args, **kwargs)
-        stamp_launches[name] = stamp.LAUNCHES.stamp
-        lighting_launches[name] = lighting.LAUNCHES.lighting
-        scattering_launches[name] = atmosphere.LAUNCHES.scattering
+        made = build.LAUNCHES - before
+        stamp_launches[name] = made["stamp"]
+        lighting_launches[name] = made["lighting"]
+        scattering_launches[name] = made["scattering"]
         print(f"phase {name}: {stamp_launches[name]} stamp launches, {lighting_launches[name]} lighting launches, "
-              f"{scattering_launches[name]} scattering launches over {atmosphere.LAUNCHES.scattering_rays} rays",
+              f"{scattering_launches[name]} scattering launches over {made['scattering_rays']} rays",
               flush=True)
         return out
 

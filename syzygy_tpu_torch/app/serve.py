@@ -332,7 +332,7 @@ class _State:
             pw = max(1, self.config.width // self.preview_scale)
             ph = max(1, self.config.height // self.preview_scale)
             if (pw, ph) != (self.config.width, self.config.height):
-                self._preview_config = dataclasses.replace(self.config, width=pw, height=ph, sky_row_chunks=0)
+                self._preview_config = dataclasses.replace(self.config, width=pw, height=ph)
 
     def _dispatch(self, cfg):
         """Render one frame of the current scene at ``cfg``: the encoded

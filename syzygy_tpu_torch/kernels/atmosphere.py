@@ -16,8 +16,8 @@ device: on a CUDA tensor :func:`luminance_scattering_integral` and
 one thread per ray, bitwise :func:`luminance_scattering_integral_plain`
 and :func:`_scattering_integral_components_plain`; on the CPU they run
 those. On the card, inputs that need a gradient get the plain version's.
-:data:`LAUNCHES` counts the kernel's launches and the rays they
-integrated.
+``kernels.build.LAUNCHES`` counts the kernel's launches (``scattering``)
+and the rays they integrated (``scattering_rays``).
 """
 
 from __future__ import annotations
@@ -27,8 +27,7 @@ from typing import NamedTuple
 import torch
 
 from syzygy_tpu_torch.kernels import build
-from syzygy_tpu_torch.kernels.plain_gradient import PlainGradient, grad_leaves
-from syzygy_tpu_torch.kernels.raster import LaunchCounts
+from syzygy_tpu_torch.kernels.plain_gradient import dispatch
 from syzygy_tpu_torch.math.geometry import dot3_fma, fma32, sqrt_rn, vec_norm
 from syzygy_tpu_torch.scene.atmosphere import AtmospherePacked
 
@@ -436,21 +435,6 @@ def _scattering_integral_components_plain(atmo, lut, origin, direction, sample_d
     return acc_r, acc_m
 
 
-class LaunchCount(LaunchCounts):
-    """Scattering kernel launches and the rays they integrated, counted by
-    :func:`luminance_scattering_integral` and
-    :func:`_scattering_integral_components` where they launch the CUDA
-    kernel and nowhere else (a frame replayed from a CUDA graph adds the
-    launches it holds, ``renderer/frame.py``)."""
-
-    KINDS = ("scattering", "scattering_rays")
-
-    def reset(self) -> None:
-        self.scattering = 0
-        self.scattering_rays = 0
-
-
-LAUNCHES = LaunchCount()
 # the atmosphere's values that csrc/scattering.cu reads, in its order
 _TABLE_FIELDS = (
     ("planet_radius_mm", 1), ("atmosphere_radius_mm", 1), ("density_scale_rayleigh_mm", 1),
@@ -522,15 +506,12 @@ def _launch_kernel(components: bool, atmo, lut, origin, direction, sample_distan
     out0 = torch.empty((n, 3), dtype=F32, device=dev)
     out1 = torch.empty((n, 3), dtype=F32, device=dev) if components else None
     if n:
-        err = build.load("scattering").szg_scattering(
+        build.launch(
+            "szg_scattering", dev,
             origin.data_ptr(), stride, direction.data_ptr(), distance.data_ptr(), lut.data_ptr(), lut.shape[0],
             lut.shape[1], table.data_ptr(), out0.data_ptr(), None if out1 is None else out1.data_ptr(), n,
-            int(components), dev.index, torch._C._cuda_getCurrentRawStream(dev.index),
+            int(components), counts={"scattering": 1, "scattering_rays": n},
         )
-        if err != 0:
-            raise RuntimeError(f"scattering kernel launch failed: CUDA error {err}")
-        LAUNCHES.scattering += 1
-        LAUNCHES.scattering_rays += n
     if components:
         return out0.reshape(*batch, 3), out1.reshape(*batch, 3)
     return out0.reshape(*batch, 3)
@@ -541,15 +522,7 @@ def _integral(components: bool, atmo, lut, origin, direction, sample_distance):
     version's gradient where autograd needs the inputs."""
     plain = _scattering_integral_components_plain if components else luminance_scattering_integral_plain
     args = (atmo, lut, origin, direction, sample_distance)
-    if lut.device.type != "cuda":
-        return plain(*args)
-
-    def kernel():
-        with torch.no_grad():
-            return _launch_kernel(components, *args)
-
-    needs = grad_leaves(args) if torch.is_grad_enabled() else []
-    return PlainGradient.apply(kernel, plain, args, *needs) if needs else kernel()
+    return dispatch(lut.device, lambda: _launch_kernel(components, *args), plain, args)
 
 
 def luminance_scattering_integral(atmo, lut, origin, direction, sample_distance):

@@ -8,16 +8,27 @@ is kept beside the library as ``.so.log``. :func:`build` starts one
 ``nvcc`` per missing source, all at once, and waits for them together.
 :func:`load` binds each entry point's ctypes signature once, when it
 first loads a library, so a launch binds nothing.
+
+:func:`launch` is every kernel's launch: it passes the device index and
+the current raw stream, raises when the launch fails, and counts the
+launch by kind into :data:`LAUNCHES`, or, while the calling thread
+captures a CUDA graph inside :func:`capture_record`, into that capture's
+record, which each replay of the graph adds to :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
+
+import torch
 
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PACKAGE, "csrc")
@@ -59,7 +70,14 @@ ENTRY_POINTS = {
 _COMMON = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
+_SOURCE_OF = {entry: name for name, entries in ENTRY_POINTS.items() for entry in entries}
+
 _loaded: dict[str, ctypes.CDLL] = {}
+# kernel launches by kind: the raster's visibility, depth, visibility_full
+# and depth_full, lighting, scattering (and the scattering_rays they
+# integrate), lane_gather and stamp
+LAUNCHES: collections.Counter = collections.Counter()
+_capturing = threading.local()
 
 
 def nvcc() -> str:
@@ -139,3 +157,37 @@ def ptxas_report(name: str) -> str:
     memory, spills), one line."""
     with open(library_path(name) + ".log") as f:
         return " | ".join(line.strip() for line in f if line.strip())
+
+
+def call(entry: str, *args) -> None:
+    """Call entry point ``entry`` of its source's library; raises when it
+    returns a CUDA error."""
+    err = getattr(load(_SOURCE_OF[entry]), entry)(*args)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
+
+
+def launch(entry: str, device: torch.device, *args, counts: dict) -> None:
+    """Launch ``entry`` with ``args``, then ``device``'s index and its
+    current raw stream, without waiting; ``counts`` (kind -> number) go to
+    :data:`LAUNCHES`, or to the open :func:`capture_record` while the
+    stream captures a graph (a launch captured outside one counts
+    nowhere: it is captured, not launched)."""
+    call(entry, *args, device.index, torch._C._cuda_getCurrentRawStream(device.index))
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES.update(counts)
+    elif getattr(_capturing, "record", None) is not None:
+        _capturing.record.update(counts)
+
+
+@contextlib.contextmanager
+def capture_record():
+    """The launches that this thread captures into a CUDA graph inside, by
+    kind (a Counter): what each replay of the graph launches."""
+    if getattr(_capturing, "record", None) is not None:
+        raise RuntimeError("a capture is already being recorded on this thread")
+    _capturing.record = collections.Counter()
+    try:
+        yield _capturing.record
+    finally:
+        _capturing.record = None

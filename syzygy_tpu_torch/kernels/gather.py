@@ -5,6 +5,7 @@ index is computed outside the kernel (:func:`lut_index`, the jnp
 expression of ``:240-245``), then one kernel reads one table entry per
 sample. On a CUDA tensor :func:`lane_gather` launches
 ``csrc/gather.cu``; on a CPU tensor it runs :func:`lane_gather_plain`.
+``kernels.build.LAUNCHES`` counts the kernel's launches (``lane_gather``).
 """
 
 from __future__ import annotations
@@ -12,20 +13,6 @@ from __future__ import annotations
 import torch
 
 from syzygy_tpu_torch.kernels import build
-
-
-class LaunchCount:
-    """Kernel launches, counted where :func:`lane_gather` launches the CUDA
-    kernel and nowhere else."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self) -> None:
-        self.lane_gather = 0
-
-
-LAUNCHES = LaunchCount()
 
 
 def lut_index(u: torch.Tensor, v: torch.Tensor, height: int, width: int) -> torch.Tensor:
@@ -67,15 +54,11 @@ def _check(flat: torch.Tensor, idx: torch.Tensor) -> None:
 def _launch(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on checked inputs (see :func:`lane_gather`) on the
     current stream of the indices' device: no binding, no device guard."""
-    dev = idx.device.index
     out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
-    err = build.load("gather").szg_lane_gather(
-        flat.data_ptr(), flat.numel(), idx.data_ptr(), out.data_ptr(), idx.numel(), dev,
-        torch._C._cuda_getCurrentRawStream(dev),
+    build.launch(
+        "szg_lane_gather", idx.device, flat.data_ptr(), flat.numel(), idx.data_ptr(), out.data_ptr(), idx.numel(),
+        counts={"lane_gather": 1},
     )
-    if err != 0:
-        raise RuntimeError(f"lane gather launch failed: CUDA error {err}")
-    LAUNCHES.lane_gather += 1
     return out
 
 

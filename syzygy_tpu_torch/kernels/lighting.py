@@ -3,8 +3,9 @@
 Port of ``syzygy_tpu/kernels/lighting.py`` (``deferred/lights.comp``,
 ``gbuffer/pbrFunctions.glinl``, ``shadowmap.glinl``). The PCF samples its
 25 taps directly (``_sample_shadow_map_naive``, ``lighting.py:492-515``),
-which is bitwise-equal to the reference's segment-table forms (the select
-tree, ``bitmask``, ``window2d``, ``seg8``); with ``f16=True`` the map is
+which is bitwise-equal to the reference's segment-table gather layouts
+(the select tree, ``bitmask``, ``window2d``, ``seg8``), which the port
+does not have; with ``f16=True`` the map is
 rounded to float16 before the compare, as the reference's f16 segment
 tables are, up to 2048 texels (larger maps read f32 there). ``q8=True``
 decodes the reference's u8 block-quantized segments.
@@ -19,7 +20,7 @@ slots, bitwise :func:`deferred_lighting_plain`; on the CPU it runs
 under its mask (autograd reaches the light colors and directions through
 the masked sums; the reference needs its ``unroll=True`` form for that).
 On the card, inputs that need a gradient get the plain version's.
-:data:`LAUNCHES` counts the kernel's launches.
+``kernels.build.LAUNCHES`` counts the kernel's launches (``lighting``).
 """
 
 from __future__ import annotations
@@ -30,8 +31,7 @@ import torch
 
 from syzygy_tpu_torch.device import constant
 from syzygy_tpu_torch.kernels import build
-from syzygy_tpu_torch.kernels.plain_gradient import PlainGradient, grad_leaves
-from syzygy_tpu_torch.kernels.raster import LaunchCounts
+from syzygy_tpu_torch.kernels.plain_gradient import dispatch
 from syzygy_tpu_torch.kernels.resolve import GBuffer
 from syzygy_tpu_torch.math.geometry import matmul4, matvec, sqrt_rn, vec_norm, world_up
 from syzygy_tpu_torch.scene.camera import CameraPacked
@@ -126,20 +126,14 @@ PCF_PAD = 8  # zero texels left of a segment row (``lighting.py:122``)
 PCF_WINDOW_MAX_DIM = 2048  # larger maps take the direct f32 taps (``:125``)
 
 
-def sample_shadow_map(
-    shadow_map, coord, dx, dy, bitmask: bool = False, f16: bool = False, q8: bool = False,
-    window2d: bool = False, seg8: bool = False,
-):
+def sample_shadow_map(shadow_map, coord, dx, dy, f16: bool = False, q8: bool = False):
     """``sampleShadowMap`` (``shadowmap.glinl:32-63``): 5x5 PCF, NEAREST,
     clamp-to-border(0), reverse-Z occluder test -> (H, W) light factor.
 
     The reference's precedence (``lighting.py:186-213``): above
     ``PCF_WINDOW_MAX_DIM`` texels the taps read the f32 map whatever the
     flags say; else ``q8`` decodes u8 segments (:func:`_pcf_q8`) and
-    ``f16`` rounds the map. ``bitmask``, ``window2d`` and ``seg8`` are
-    the reference's gather layouts of the same taps: accepted, and
-    computed by the one direct form."""
-    del bitmask, window2d, seg8  # layouts of the same taps
+    ``f16`` rounds the map."""
     size = shadow_map.shape[-1]
     if size <= PCF_WINDOW_MAX_DIM:
         if q8:
@@ -149,14 +143,14 @@ def sample_shadow_map(
     return _pcf_taps(size, coord, dx, dy, lambda iyc, ix: shadow_map[iyc, ix])
 
 
-def directional_pcf(light, material: PBRTexel, shadow_map, **flags):
+def directional_pcf(light, material: PBRTexel, shadow_map, f16: bool = False, q8: bool = False):
     """A directional light's (H, W) PCF visibility at the material's
-    surface (``lights.comp:52-60``, ``camera.comp:349-356``); ``flags``
-    are :func:`sample_shadow_map`'s."""
+    surface (``lights.comp:52-60``, ``camera.comp:349-356``); ``f16`` and
+    ``q8`` as :func:`sample_shadow_map` takes them."""
     coord, dx, dy = compute_shadow_frame(
         matmul4(light.projection, light.view), material.position, material.normal
     )
-    return sample_shadow_map(shadow_map, coord, dx, dy, **flags)
+    return sample_shadow_map(shadow_map, coord, dx, dy, f16=f16, q8=q8)
 
 
 def _pcf_taps(size: int, coord, dx, dy, texel):
@@ -306,11 +300,8 @@ def deferred_lighting_plain(
     spots: SpotLight,
     spot_count,
     shadow_maps,  # (D + S, dim, dim) f32
-    unroll: bool = False,
-    pcf_bitmask: bool = False,
     pcf_f16: bool = False,
     pcf_q8: bool = False,
-    pcf_window2d: bool = False,
     shadowless_eps: float = 0.0,
     sun_shadow=None,
 ):
@@ -323,13 +314,12 @@ def deferred_lighting_plain(
     Every slot is evaluated and accumulated under its device mask
     (``acc = where(active, acc + c, acc)``), so an inactive light leaves
     the sum bitwise as it was and nothing is read back to the host; this
-    one form is differentiable (``unroll``, the reference's differentiable
-    form, is accepted and changes nothing). The ``pcf_*`` flags go to
+    one form is differentiable, as the reference's ``unroll=True`` form
+    is. The ``pcf_*`` flags go to
     :func:`sample_shadow_map`. ``sun_shadow`` (H, W), when given, is
     directional light 0's PCF, evaluated once by the caller and shared
     with the sky pass (``RenderConfig.share_sun_pcf``); it takes the place
     of that light's own PCF in the same accumulation order."""
-    del unroll  # one form
     activity = light_activity(
         directional, directional_count, directional_skip, spots, spot_count, shadowless_eps,
         shadow_maps.shape[0],
@@ -339,7 +329,7 @@ def deferred_lighting_plain(
     view_dir = _normalize(camera.position[:3] - material.position)
     total = torch.zeros_like(material.position)
     n_dir = directional.strength.shape[0]
-    pcf = dict(bitmask=pcf_bitmask, f16=pcf_f16, q8=pcf_q8, window2d=pcf_window2d)
+    pcf = dict(f16=pcf_f16, q8=pcf_q8)
 
     def dir_contribution(i, shadow):
         light = _take(directional, i)
@@ -380,18 +370,6 @@ def deferred_lighting_plain(
     return torch.where(lit_mask, total, 0.0)
 
 
-class LaunchCount(LaunchCounts):
-    """Lighting kernel launches, counted by :func:`deferred_lighting` where
-    it launches the CUDA kernel and nowhere else (a frame replayed from a
-    CUDA graph adds the launches it holds, ``renderer/frame.py``)."""
-
-    KINDS = ("lighting",)
-
-    def reset(self) -> None:
-        self.lighting = 0
-
-
-LAUNCHES = LaunchCount()
 TABLE_STRIDE = 32  # f32 values per light slot of :func:`light_table` (csrc/lighting.cu)
 MAX_SLOTS = 64  # light slots the kernel's evaluated-slot mask holds
 _LAST_MASK: dict = {}  # device -> the slot mask its last lighting launch writes
@@ -496,15 +474,12 @@ def _launch_kernel(gbuffer, camera, directional, spots, shadow_maps, shadowless_
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = build.load("lighting").szg_lighting(
+    build.launch(
+        "szg_lighting", dev,
         *[p.data_ptr() for p in planes], camera_pos.data_ptr(), table.data_ptr(), *[m.data_ptr() for m in masks],
         n_dir, n_spot, int(shadowless_eps > 0.0), maps.data_ptr(), size, int(f16), ptr(codes), ptr(lo16),
-        ptr(step16), n_w, ptr(sun_shadow), out.data_ptr(), mask.data_ptr(), rows * width, dev.index,
-        torch._C._cuda_getCurrentRawStream(dev.index),
+        ptr(step16), n_w, ptr(sun_shadow), out.data_ptr(), mask.data_ptr(), rows * width, counts={"lighting": 1},
     )
-    if err != 0:
-        raise RuntimeError(f"lighting kernel launch failed: CUDA error {err}")
-    LAUNCHES.lighting += 1
     _LAST_MASK[dev] = mask
     return out
 
@@ -518,11 +493,8 @@ def deferred_lighting(
     spots: SpotLight,
     spot_count,
     shadow_maps,  # (D + S, dim, dim) f32
-    unroll: bool = False,
-    pcf_bitmask: bool = False,
     pcf_f16: bool = False,
     pcf_q8: bool = False,
-    pcf_window2d: bool = False,
     shadowless_eps: float = 0.0,
     sun_shadow=None,
 ):
@@ -532,34 +504,27 @@ def deferred_lighting(
     :func:`light_activity` marks live evaluated (in the plain version's
     order), their per-slot inputs packed by :func:`light_table`, q8 maps'
     segments by :func:`q8_tables`. Where autograd needs the inputs, the
-    gradient is the plain version's (:class:`PlainGradient`). CPU tensors
+    gradient is the plain version's (:func:`kernels.plain_gradient.dispatch`). CPU tensors
     take :func:`deferred_lighting_plain`."""
     args = (
         gbuffer, camera, directional, directional_count, directional_skip, spots, spot_count, shadow_maps,
         sun_shadow,
     )
-    flags = dict(
-        unroll=unroll, pcf_bitmask=pcf_bitmask, pcf_f16=pcf_f16, pcf_q8=pcf_q8, pcf_window2d=pcf_window2d,
-        shadowless_eps=shadowless_eps,
-    )
 
     def plain(*a):
-        return deferred_lighting_plain(*a[:-1], sun_shadow=a[-1], **flags)
-
-    if shadow_maps.device.type != "cuda":
-        return plain(*args)
+        return deferred_lighting_plain(
+            *a[:-1], pcf_f16=pcf_f16, pcf_q8=pcf_q8, shadowless_eps=shadowless_eps, sun_shadow=a[-1],
+        )
 
     def kernel():
-        with torch.no_grad():
-            activity = light_activity(
-                directional, directional_count, directional_skip, spots, spot_count, shadowless_eps,
-                shadow_maps.shape[0],
-            )
-            small = shadow_maps.shape[-1] <= PCF_WINDOW_MAX_DIM
-            return _launch_kernel(
-                gbuffer, camera, directional, spots, shadow_maps, shadowless_eps, activity,
-                pcf_f16 and small, pcf_q8 and small, sun_shadow,
-            )
+        activity = light_activity(
+            directional, directional_count, directional_skip, spots, spot_count, shadowless_eps,
+            shadow_maps.shape[0],
+        )
+        small = shadow_maps.shape[-1] <= PCF_WINDOW_MAX_DIM
+        return _launch_kernel(
+            gbuffer, camera, directional, spots, shadow_maps, shadowless_eps, activity,
+            pcf_f16 and small, pcf_q8 and small, sun_shadow,
+        )
 
-    needs = grad_leaves(args) if torch.is_grad_enabled() else []
-    return PlainGradient.apply(kernel, plain, args, *needs) if needs else kernel()
+    return dispatch(shadow_maps.device, kernel, plain, args)

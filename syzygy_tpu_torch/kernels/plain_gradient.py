@@ -3,7 +3,8 @@
 The CUDA kernels compute forward passes only. Where autograd needs the
 inputs of one, :class:`PlainGradient` runs the kernel forward and, in the
 backward, recomputes the plain torch version on detached copies of the
-inputs that need a gradient and differentiates that.
+inputs that need a gradient and differentiates that. :func:`dispatch`
+chooses between the plain version and the kernel.
 """
 
 from __future__ import annotations
@@ -53,3 +54,18 @@ class PlainGradient(torch.autograd.Function):
         outs = out if isinstance(out, tuple) else (out,)
         got = torch.autograd.grad(outs, detached, grads, allow_unused=True)
         return (None, None, None, *got)
+
+
+def dispatch(device: torch.device, kernel, plain, args):
+    """``plain(*args)`` off the card; on a CUDA ``device``, ``kernel()``
+    under ``no_grad``, with the gradient of ``plain`` where autograd needs
+    the tensors of ``args``."""
+    if device.type != "cuda":
+        return plain(*args)
+
+    def forward():
+        with torch.no_grad():
+            return kernel()
+
+    needs = grad_leaves(args) if torch.is_grad_enabled() else []
+    return PlainGradient.apply(forward, plain, args, *needs) if needs else forward()

@@ -519,39 +519,6 @@ def rasterize_plain(
     return VisibilityBuffer(depth, tri, b0, b1)
 
 
-class LaunchCounts:
-    """Kernel launches per raster kind, counted by :func:`rasterize` where
-    it launches the CUDA kernel and nowhere else (a frame replayed from a
-    CUDA graph adds the launches it holds, ``renderer/frame.py``). A
-    listed launch whose lists overflowed takes full iteration inside the
-    kernel and counts as listed."""
-
-    KINDS = ("visibility", "depth", "visibility_full", "depth_full")
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self) -> None:
-        self.visibility = 0  # camera rasters over tile lists (K1)
-        self.depth = 0  # shadow-map rasters over tile lists (K2)
-        self.visibility_full = 0  # camera rasters by full iteration (K3, tile_list_capacity=0)
-        self.depth_full = 0  # shadow-map rasters by full iteration (K4)
-
-    def snapshot(self) -> dict:
-        return {kind: getattr(self, kind) for kind in self.KINDS}
-
-    def restore(self, counts: dict) -> None:
-        for kind in self.KINDS:
-            setattr(self, kind, counts[kind])
-
-    def add(self, counts: dict) -> None:
-        for kind in self.KINDS:
-            setattr(self, kind, getattr(self, kind) + counts[kind])
-
-
-LAUNCHES = LaunchCounts()
-
-
 def _launch_kernel(setup: TriSetup, lists: TileLists | None, height, width, depth_only, origin):
     """Launch ``csrc/raster.cu`` over ``lists``, or by full iteration when
     they are None."""
@@ -593,16 +560,15 @@ def _launch_kernel(setup: TriSetup, lists: TileLists | None, height, width, dept
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    err = build.load("raster").szg_raster(
+    # a listed launch whose lists overflowed takes full iteration inside
+    # the kernel and counts as listed
+    kind = ("depth" if depth_only else "visibility") + ("_full" if lists is None else "")
+    build.launch(
+        "szg_raster", dev,
         coeffs.data_ptr(), box.data_ptr(), coeffs.shape[0], ptr(slots), ptr(offsets), ptr(overflow),
         int(lists is None), tiles_y, tiles_x, int(origin[0]), int(origin[1]), int(depth_only),
-        depth.data_ptr(), ptr(tri), ptr(b0), ptr(b1),
-        dev.index, torch._C._cuda_getCurrentRawStream(dev.index),
+        depth.data_ptr(), ptr(tri), ptr(b0), ptr(b1), counts={kind: 1},
     )
-    if err != 0:
-        raise RuntimeError(f"raster kernel launch failed: CUDA error {err}")
-    kind = ("depth" if depth_only else "visibility") + ("_full" if lists is None else "")
-    setattr(LAUNCHES, kind, getattr(LAUNCHES, kind) + 1)
     if depth_only:
         empty = torch.zeros((0, 0), dtype=F32, device=dev)
         return VisibilityBuffer(depth, empty, empty, empty)

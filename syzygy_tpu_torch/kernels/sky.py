@@ -616,9 +616,7 @@ def sky_camera_pass(
     row_origin: int = 0,  # global row of this block's first row
     fast: bool = False,  # exp-step integrals (quirk-exact formulation only)
     fast_reflection: bool = False,  # exp-step integral for the bounce's environment only
-    pcf_bitmask: bool = False,
     pcf_q8: bool = False,
-    pcf_window2d: bool = False,
     sun_shadow=None,  # (H, W) sun PCF shared with the lighting pass, or None
     exact: ExactAerial | None = None,  # the quirk-exact integrals, computed ahead
 ):
@@ -641,10 +639,7 @@ def sky_camera_pass(
         pixels = exact.pixels
 
     if sun_shadow is None:
-        sun_shadow = directional_pcf(
-            sun_light, pixels.material, sun_shadow_map,
-            bitmask=pcf_bitmask, f16=pcf_f16, q8=pcf_q8, window2d=pcf_window2d,
-        )
+        sun_shadow = directional_pcf(sun_light, pixels.material, sun_shadow_map, f16=pcf_f16, q8=pcf_q8)
 
     if aerial is not None:
         env_transfer, geo_transfer = _transfers_aerial(

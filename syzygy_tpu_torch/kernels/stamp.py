@@ -7,8 +7,8 @@ of a replay writes -1 there, its last writes the sequence number and
 advances ``seq`` (an int64 scalar tensor). On a CUDA tensor it launches
 the kernel; on a CPU tensor it runs :func:`stamp_plain`, which reads the
 host's clock. :func:`capture_nodes` counts the nodes of the CUDA graph
-that the current stream is capturing into. :data:`LAUNCHES` counts the
-kernel's launches.
+that the current stream is capturing into. ``kernels.build.LAUNCHES``
+counts the kernel's launches (``stamp``).
 """
 
 from __future__ import annotations
@@ -19,23 +19,6 @@ import time
 import torch
 
 from syzygy_tpu_torch.kernels import build
-
-
-class LaunchCount:
-    """Stamp kernels launched: counted by :func:`stamp` where it launches
-    the CUDA kernel outside a graph capture, and by each replay of a
-    captured frame for the stamps its graph holds
-    (``renderer/layers.py::FrameTrace.replayed``); a stamp captured into a
-    graph counts when the graph replays, not when it is captured."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self) -> None:
-        self.stamp = 0
-
-
-LAUNCHES = LaunchCount()
 
 
 def _check(ring: torch.Tensor, seq: torch.Tensor, mark: int) -> None:
@@ -69,24 +52,15 @@ def stamp(ring: torch.Tensor, seq: torch.Tensor, mark: int, last: bool) -> None:
         return
     if kind != "cuda":
         raise ValueError(f"no stamp for device type {kind!r}")
-    index = ring.device.index
-    err = build.load("stamp").szg_stamp(
-        ring.data_ptr(), seq.data_ptr(), ring.shape[0], ring.shape[1], mark, int(last),
-        index, torch._C._cuda_getCurrentRawStream(index),
+    build.launch(
+        "szg_stamp", ring.device, ring.data_ptr(), seq.data_ptr(), ring.shape[0], ring.shape[1], mark, int(last),
+        counts={"stamp": 1},
     )
-    if err != 0:
-        raise RuntimeError(f"stamp kernel launch failed: CUDA error {err}")
-    if not torch.cuda.is_current_stream_capturing():
-        LAUNCHES.stamp += 1
 
 
 def capture_nodes(device: torch.device) -> int:
     """The nodes of the graph that the current stream of ``device`` is
     capturing into. Raises when it is capturing nothing."""
     count = ctypes.c_longlong(0)
-    err = build.load("stamp").szg_capture_nodes(
-        torch._C._cuda_getCurrentRawStream(device.index), ctypes.addressof(count)
-    )
-    if err != 0:
-        raise RuntimeError(f"no graph node count: CUDA error {err}")
+    build.call("szg_capture_nodes", torch._C._cuda_getCurrentRawStream(device.index), ctypes.addressof(count))
     return count.value

@@ -83,7 +83,7 @@ def render_case(dp: int, sp: int, width: int, height: int, frames: int, device: 
     fills the allocator's pools: with ``warm`` it is rendered first, timed
     apart (``first_ms``) and held bitwise against the counted one, which
     is what a timing on the card needs; else ``first_ms`` is None."""
-    from syzygy_tpu_torch.kernels.raster import LAUNCHES
+    from syzygy_tpu_torch.kernels.build import LAUNCHES
     from syzygy_tpu_torch.parallel.sharding import (
         batch_params,
         make_mesh,
@@ -111,15 +111,16 @@ def render_case(dp: int, sp: int, width: int, height: int, frames: int, device: 
         return out, (time.perf_counter() - t0) * 1e3
 
     first, first_ms = timed() if warm else (None, None)
-    LAUNCHES.reset()
+    before = LAUNCHES.copy()
     images, ms = timed()
+    made = LAUNCHES - before
     if warm and not torch.equal(images, first):
         raise RuntimeError("render_frames_sharded gave two different batches for the same frames")
     return {
         "images": images.cpu(),
         "ms": ms,
         "first_ms": first_ms,
-        "launches": {"visibility": LAUNCHES.visibility, "depth": LAUNCHES.depth},
+        "launches": {"visibility": made["visibility"], "depth": made["depth"]},
         "device": str(dev),
     }
 

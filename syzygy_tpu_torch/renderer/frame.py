@@ -53,9 +53,9 @@ from syzygy_tpu_torch.kernels.atmosphere import (
     pack_lut_q8,
 )
 from syzygy_tpu_torch.kernels.debuglines import draw_lines
-from syzygy_tpu_torch.kernels import atmosphere, lighting
+from syzygy_tpu_torch.kernels import build, lighting
 from syzygy_tpu_torch.kernels.lighting import convert_pbr, deferred_lighting, directional_pcf, light_activity
-from syzygy_tpu_torch.kernels.raster import LAUNCHES, TILE_H, TILE_W, rasterize, setup_triangles
+from syzygy_tpu_torch.kernels.raster import TILE_H, TILE_W, rasterize, setup_triangles
 from syzygy_tpu_torch.kernels.resolve import (
     resolve_gbuffer,
     transform_normals,
@@ -93,24 +93,24 @@ def _round_up(n: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static frame configuration with the reference's field names and
-    defaults (``frame.py:184-512``).
-
-    Honoured: the dimensions, shadow-map count/bias, LUT dims,
-    ``pcf_f16``, ``pcf_q8``, ``shadowless_strength_eps``,
-    ``share_sun_pcf``, ``skyview_q8``/``skyview_f16``, ``lut_f16``,
-    ``skyview_tseg``, ``render_atmosphere``, ``debug_lines``, ``oetf``,
-    ``supersample``, ``metallic_reflection``, ``aerial_lut`` and
-    ``aerial_lut_far_m``, ``fast_sky`` and ``fast_sky_reflection`` (read
-    by the per-pixel-integral sky only, as in the reference).
+    defaults (``frame.py:184-512``), each field honoured: the dimensions,
+    shadow-map count/bias, LUT dims, ``pcf_f16``, ``pcf_q8``,
+    ``shadowless_strength_eps``, ``share_sun_pcf``,
+    ``skyview_q8``/``skyview_f16``, ``lut_f16``, ``skyview_tseg``,
+    ``render_atmosphere``, ``debug_lines``, ``oetf``, ``supersample``,
+    ``metallic_reflection``, ``aerial_lut`` and ``aerial_lut_far_m``,
+    ``fast_sky`` and ``fast_sky_reflection`` (read by the
+    per-pixel-integral sky only, as in the reference).
     ``shard_triangle_setup`` splits the camera setup and the resolve
     records over the row group of :func:`render_frame_rows` (``group=``).
     ``tile_list_capacity`` sizes the rasters' tile lists
     (``kernels/raster.py::bin_triangles``); lists that would drop a slot,
     and capacity 0, take the full-iteration raster, with the same bits.
-    ``pcf_bitmask`` and ``pcf_window2d`` are gather layouts of the same
-    PCF taps, and the scheduling-only knobs of the TPU build (program
-    fusion, row chunks, raster tile/chunk sizes, ``raster_unroll``,
-    ``raster_vector``) are accepted and ignored."""
+
+    The reference's TPU scheduling fields (program fusion, sky row
+    chunks, raster tile, chunk, unroll and vector settings) and its PCF
+    gather layouts (``pcf_bitmask``, ``pcf_window2d``) have no
+    counterpart here: the constructor refuses them."""
 
     width: int = 1920
     height: int = 1080
@@ -122,10 +122,8 @@ class RenderConfig:
     skyview_height: int = 1024
     transmittance_width: int = 512
     transmittance_height: int = 128
-    pcf_bitmask: bool = False
     pcf_f16: bool = True
     pcf_q8: bool = False
-    pcf_window2d: bool = False
     shadowless_strength_eps: float = 0.025
     share_sun_pcf: bool = False
     skyview_f16: bool = True
@@ -136,31 +134,21 @@ class RenderConfig:
     oetf: str = "srgb"
     supersample: int = 1
     tile_list_capacity: int = 448
-    raster_tile_h: int = 64
-    raster_tile_w: int = 128
-    raster_chunk: int = 64
-    raster_unroll: bool = True
-    raster_vector: bool = True
-    sky_row_chunks: int = 0
     fast_sky: bool = False
     aerial_lut: bool = True
     aerial_lut_far_m: float = 4000.0
     skyview_tseg: bool = True
     metallic_reflection: bool = True
-    fuse_lighting_sky: bool = True
-    fuse_lighting_sky_chunks: bool = True
-    resolve_in_sky_chunks: bool = True
     fast_sky_reflection: bool = True
     shard_triangle_setup: bool = True
 
-    # sizes that must be positive (the first eight are the reference
-    # editor's checks, properties.py:289-295) or at least zero
+    # sizes that must be positive (the reference editor's checks,
+    # properties.py:289-295) or at least zero
     _POSITIVE = (
         "width", "height", "shadow_dim", "supersample", "skyview_width", "skyview_height",
-        "transmittance_width", "transmittance_height", "raster_tile_h", "raster_tile_w",
-        "raster_chunk",
+        "transmittance_width", "transmittance_height",
     )
-    _NON_NEGATIVE = ("n_shadow_maps", "tile_list_capacity", "sky_row_chunks")
+    _NON_NEGATIVE = ("n_shadow_maps", "tile_list_capacity")
 
     def check(self) -> None:
         for name in self._POSITIVE + self._NON_NEGATIVE:
@@ -317,7 +305,8 @@ def render_frame_linear(
             deferred_lighting(
                 gbuffer, state.camera, state.directional_lights, state.directional_count,
                 state.directional_skip_count, state.spot_lights, state.spot_count, shadow_maps,
-                shadowless_eps=config.shadowless_strength_eps, sun_shadow=sun_shadow, **_pcf_flags(config),
+                pcf_f16=config.pcf_f16, pcf_q8=config.pcf_q8, shadowless_eps=config.shadowless_strength_eps,
+                sun_shadow=sun_shadow,
             ),
             0.0,
             1.0,
@@ -335,22 +324,12 @@ def render_frame_linear(
     return color
 
 
-def _pcf_flags(config: RenderConfig) -> dict:
-    return dict(
-        pcf_bitmask=config.pcf_bitmask, pcf_f16=config.pcf_f16, pcf_q8=config.pcf_q8,
-        pcf_window2d=config.pcf_window2d,
-    )
-
-
 def _sun_pcf(state, gbuffer, shadow_maps, config: RenderConfig):
     """The sun's (H, W) PCF visibility that the lighting (directional
     light 0) and the sky pass both read (``share_sun_pcf``,
     ``frame.py:790-815``), evaluated once for the row block."""
     sun = type(state.directional_lights)(*[x[0] for x in state.directional_lights])
-    return directional_pcf(
-        sun, convert_pbr(gbuffer), shadow_maps[0], bitmask=config.pcf_bitmask, f16=config.pcf_f16,
-        q8=config.pcf_q8, window2d=config.pcf_window2d,
-    )
+    return directional_pcf(sun, convert_pbr(gbuffer), shadow_maps[0], f16=config.pcf_f16, q8=config.pcf_q8)
 
 
 def _sky(state, lit, depth, gbuffer, shadow_maps, config: RenderConfig, row0: int, sun_shadow=None):
@@ -400,7 +379,7 @@ def _sky(state, lit, depth, gbuffer, shadow_maps, config: RenderConfig, row0: in
             aerial=aerial, aerial_t_max=t_max_mm, tseg_rows=tseg,
             metallic_reflection=config.metallic_reflection,
             row_origin=row0, fast=config.fast_sky, fast_reflection=config.fast_sky_reflection,
-            sun_shadow=sun_shadow, exact=exact, **_pcf_flags(config),
+            pcf_f16=config.pcf_f16, pcf_q8=config.pcf_q8, sun_shadow=sun_shadow, exact=exact,
         )
         return torch.clamp(color, 0.0, 1.0)
 
@@ -492,7 +471,7 @@ STAGING_SLOTS = 2  # pinned rows per (device, size): a row in flight is never ov
 
 class _FrameGraph:
     """One frame captured as a CUDA graph: its static input row, its
-    output, the raster and lighting launches it holds, what its capture
+    output, the kernel launches it holds by kind, what its capture
     took, its :class:`layers.FrameTrace` (layer stamps in the graph, node
     counts, each replay's host spans) and the slot mask its lighting
     launch writes (:func:`kernels.lighting.last_slot_mask`)."""
@@ -522,20 +501,15 @@ class _FrameGraph:
         stream.wait_stream(current)
         with torch.no_grad(), torch.cuda.stream(stream):
             image = render_frame_eager(geometry, unflatten_frame_params(spec, row), config)
-            counts = [counter.snapshot() for counter in _COUNTERS]
             reserved = torch.cuda.memory_reserved(device)
             t0 = time.perf_counter()
             graph = torch.cuda.CUDAGraph()
             graph.capture_begin(capture_error_mode="thread_local")
             try:
-                with recording(trace):
+                with build.capture_record() as held, recording(trace):
                     output = render_frame_eager(geometry, unflatten_frame_params(spec, row), config)
             finally:
                 graph.capture_end()
-                held = {}
-                for counter, before in zip(_COUNTERS, counts):
-                    held.update({k: v - before[k] for k, v in counter.snapshot().items()})
-                    counter.restore(before)  # captured, not launched
             capture_s = time.perf_counter() - t0
         current.wait_stream(stream)
         image.record_stream(current)
@@ -551,13 +525,11 @@ class _FrameGraph:
         self.graph.replay()
         t2 = time.perf_counter()
         self.trace.replayed((t0, t1), (t1, t2))
-        for counter in _COUNTERS:
-            counter.add(self.launches)
+        build.LAUNCHES.update(self.launches)
         return self.output.clone()
 
 
 _GRAPHS: collections.OrderedDict = collections.OrderedDict()
-_COUNTERS = (LAUNCHES, lighting.LAUNCHES, atmosphere.LAUNCHES)  # the kernel launches a graph holds, by kind
 _CAPTURE_STREAMS: dict = {}
 _STAGING: dict = {}
 
@@ -597,10 +569,10 @@ def _stage(buffer, row: torch.Tensor) -> None:
 def captured_frames() -> list[dict]:
     """What each cached CUDA graph holds: its config, the host seconds
     its capture took, the bytes its capture added to the device's
-    reserved memory (its pool), its raster, lighting and scattering kernel
-    launches (and the rays the scattering launches integrate),
-    its ``layers`` in frame order, its ``nodes`` (each layer's, ``stamps``
-    and ``total``), its ``replays`` so far, ``read``: a function that
+    reserved memory (its pool), its ``launches``: the kernel launches of
+    each replay by kind (``kernels.build.LAUNCHES``' kinds, the layer
+    stamps included), its ``layers`` in frame order, its ``nodes`` (each
+    layer's, ``stamps`` and ``total``), its ``replays`` so far, ``read``: a function that
     returns the finished replays' :class:`layers.Replay` records (layer
     device ms, host stage and replay ms), oldest first, once the frames
     are done, and ``lighting_slots``: a function that returns the light

@@ -170,12 +170,9 @@ class FrameTrace:
         self._marks += 1
 
     def replayed(self, stage: tuple, replay: tuple) -> None:
-        """Record the host spans of the replay just enqueued, and count the
-        stamps its graph launched."""
+        """Record the host spans of the replay just enqueued."""
         self.host[self.replays % self.host.shape[0]] = (self.replays, *stage, *replay)
         self.replays += 1
-        if self.nodes is not None:
-            stamps.LAUNCHES.stamp += self.nodes["stamps"]
 
     def read(self) -> list:
         """The finished replays (:func:`finished_replays`). Copies the

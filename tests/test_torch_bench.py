@@ -1,21 +1,15 @@
-"""``python -m syzygy_tpu_torch.bench`` against the repository's ``bench.py``.
+"""``syzygy_tpu_torch.bench``'s scenes against the repository's ``bench.py``.
 
-The scenes and the packed rows of every timed frame are held bitwise to
-the ones ``bench.py`` builds with the JAX package's host code (its
+The scenes and the packed rows of every frame are held bitwise to the
+ones ``bench.py`` builds with the JAX package's host code (its
 ``_flagship_scene`` itself; the dense field and the chess flagship as
-``bench.py:226-273`` build them). ``measure_scene`` runs on the CPU at a
-toy size (only its control flow: a CPU time is no device number), and
-``main`` without a GPU must print ``value: null`` and fail.
+``bench.py:226-273`` build them).
 """
 
 from __future__ import annotations
 
-import dataclasses
-import json
-
 import numpy as np
 import pytest
-import torch
 
 import bench as reference_bench
 from test_torch_common import to_numpy_dict
@@ -122,55 +116,3 @@ def test_scenes_match_reference(which):
     spec, rows = bench.pack_rows(scene, 16.0 / 9.0, 0)
     _assert_spec_equal(spec, ref_spec)
     np.testing.assert_array_equal(rows, ref_rows)
-
-
-def test_measure_scene_on_cpu():
-    """The default animated scene at 64x32 (a 64x16 transmittance LUT keeps
-    a CPU frame under a second), 3 timed frames in groups of 2: two finite
-    groups ([1, 2] and [3]); the last frame is bitwise a direct
-    ``render_frame_packed`` of row 3; no device number on the CPU."""
-    from syzygy_tpu_torch import bench
-    from syzygy_tpu_torch.renderer.frame import RenderConfig, render_frame_packed
-    from syzygy_tpu_torch.scene.pack import pack_geometry, scene_uses_metallic
-
-    config = RenderConfig(
-        width=64, height=32, shadow_dim=256, skyview_width=128, skyview_height=64,
-        transmittance_width=64, transmittance_height=16,
-    )
-    scene, library = bench.default_scene_animated()
-    timing = bench.measure_scene(scene, library, config, "cpu", frames=3, group=2)
-    assert timing.device == "cpu" and timing.peak_bytes is None
-    assert len(timing.group_ms) == 2 and all(np.isfinite(t) and t > 0 for t in timing.group_ms)
-    assert timing.ms == pytest.approx(np.median(timing.group_ms))
-    assert timing.launches_per_frame == {"visibility": 0.0, "depth": 0.0, "visibility_full": 0.0, "depth_full": 0.0}  # no kernel on the CPU
-    assert timing.graph_pool_bytes is None and timing.capture_s > 0 and len(timing.issue_ms) == 2
-    assert tuple(timing.last_frame.shape) == (32, 64, 3)
-
-    fresh, _ = bench.default_scene_animated()
-    spec, rows = bench.pack_rows(fresh, 2.0, 3)
-    assert spec == timing.spec
-    np.testing.assert_array_equal(rows[3], timing.last_row)
-    direct_config = dataclasses.replace(config, metallic_reflection=scene_uses_metallic(scene, library))
-    direct = render_frame_packed(pack_geometry(scene, library, "cpu"), rows[3], spec, direct_config)
-    assert torch.equal(direct, timing.last_frame)
-    # the stacked upload's rows render as the host rows do
-    assert torch.equal(
-        render_frame_packed(pack_geometry(scene, library, "cpu"), torch.from_numpy(rows[3]), spec, direct_config),
-        direct,
-    )
-
-
-def test_main_without_gpu(monkeypatch, capsys):
-    """No silent CPU run: ``bench.py``'s keys, ``value`` null, an error,
-    exit code 1."""
-    from syzygy_tpu_torch import bench
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert bench.main() == 1
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 1
-    result = json.loads(lines[0])
-    assert {"metric", "value", "unit", "vs_baseline", "error"} <= set(result)
-    assert result["metric"] == "ms/frame, 1920x1080 full deferred+atmosphere frame"
-    assert result["value"] is None and result["vs_baseline"] is None and result["unit"] == "ms"
-    assert "extra" not in result

@@ -248,29 +248,51 @@ def test_quantize_u8_matches_reference():
     np.testing.assert_array_equal(port_fetch(torch.from_numpy(values)), fetch_frame_u8(values))
 
 
+TPU_ONLY_FIELDS = (
+    "pcf_bitmask", "pcf_window2d", "raster_tile_h", "raster_tile_w", "raster_chunk", "raster_unroll",
+    "raster_vector", "sky_row_chunks", "fuse_lighting_sky", "fuse_lighting_sky_chunks", "resolve_in_sky_chunks",
+)
+
+
 def test_render_config_fields_match_reference():
-    """Same field names and defaults as the reference RenderConfig."""
+    """Every port field has the reference RenderConfig's name and default;
+    the reference's other fields are exactly its TPU-only ones."""
     from syzygy_tpu.renderer import RenderConfig as Reference
 
     from syzygy_tpu_torch.renderer.frame import RenderConfig
 
     ref = {f.name: f.default for f in dataclasses.fields(Reference)}
     port = {f.name: f.default for f in dataclasses.fields(RenderConfig)}
-    assert port == ref
+    assert port == {name: value for name, value in ref.items() if name in port}
+    assert set(ref) - set(port) == set(TPU_ONLY_FIELDS)
 
 
-FORMER_TPU_ONLY_MODES = [
-    ("pcf_bitmask", True), ("pcf_q8", True), ("pcf_window2d", True),
-    ("lut_f16", True), ("share_sun_pcf", True), ("raster_unroll", False),
-]
+@pytest.mark.parametrize("field", TPU_ONLY_FIELDS)
+def test_render_config_refuses_tpu_only_fields(field):
+    """The reference's TPU scheduling and gather-layout fields have no
+    counterpart in the port: the constructor refuses each, at the
+    reference's default, and the config edit of the viewer and the CLI
+    answers it as an unknown field."""
+    from syzygy_tpu.renderer import RenderConfig as Reference
+
+    from syzygy_tpu_torch.app.properties import apply_config_field
+    from syzygy_tpu_torch.renderer.frame import RenderConfig
+
+    with pytest.raises(TypeError):
+        RenderConfig(**{field: getattr(Reference(), field)})
+    with pytest.raises(KeyError, match=f"no RenderConfig field '{field}'"):
+        apply_config_field(RenderConfig(), field, "1")
+
+
+FORMER_TPU_ONLY_MODES = [("pcf_q8", True), ("lut_f16", True), ("share_sun_pcf", True)]
 PORTED_MODES = [("aerial_lut", False), ("fast_sky", True), ("debug_lines", True)]
 
 
 @pytest.mark.parametrize("field,value", FORMER_TPU_ONLY_MODES + PORTED_MODES)
 def test_render_config_rejects_unported_modes(field, value):
-    """No mode is left unported: the TPU's gather-layout and storage modes
-    pass the check as the quirk-exact sky, the fast sky and the debug
-    lines do, and ``render_frame`` accepts each (a 128x64 frame;
+    """No mode is left unported: the TPU's storage modes pass the check
+    as the quirk-exact sky, the fast sky and the debug lines do, and
+    ``render_frame`` accepts each (a 128x64 frame;
     ``tests/test_torch_frame_modes.py`` holds the frames to the
     reference)."""
     from syzygy_tpu_torch.renderer.frame import RenderConfig, render_frame

@@ -4,8 +4,7 @@ whole frames of the golden scene and config (256x128).
 * ``pcf_q8`` and ``lut_f16`` change the image: the port against the
   reference under the same mode, RMSE <= 1e-4 and max <= 2e-2, and each
   moves the port's frame away from its default frame.
-* ``share_sun_pcf``, ``raster_unroll=False``, and ``pcf_bitmask`` with
-  ``pcf_window2d`` leave the port's default frame bitwise as it is.
+* ``share_sun_pcf`` leaves the port's default frame bitwise as it is.
 * ``render_frame_rows`` and ``render_frame_packed`` honour the modes:
   stacked row blocks and the packed entry point are bitwise
   ``render_frame`` under all of them at once.
@@ -25,12 +24,8 @@ from test_torch_common import port_golden_scene, reference_golden_scene, rmse
 MODE_RMSE = 1e-4
 MODE_MAX = 2e-2
 IMAGE_MODES = {"pcf_q8": dict(pcf_q8=True), "lut_f16": dict(lut_f16=True)}
-LAYOUT_MODES = {
-    "share_sun_pcf": dict(share_sun_pcf=True),
-    "raster_unroll_off": dict(raster_unroll=False),
-    "pcf_bitmask_window2d": dict(pcf_bitmask=True, pcf_window2d=True),
-}
-ALL_MODES = dict(pcf_q8=True, lut_f16=True, share_sun_pcf=True, pcf_bitmask=True, pcf_window2d=True, raster_unroll=False)
+LAYOUT_MODES = {"share_sun_pcf": dict(share_sun_pcf=True)}
+ALL_MODES = dict(pcf_q8=True, lut_f16=True, share_sun_pcf=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,7 +79,7 @@ def test_layout_modes_keep_the_frame(mode):
 
 @pytest.mark.parametrize("entry", ["rows", "packed"])
 def test_entry_points_honour_the_modes(entry):
-    """Both go through ``render_frame_linear``; under every new mode at
+    """Both go through ``render_frame_linear``; under every mode at
     once they stay bitwise ``render_frame`` (the golden target needs no
     padding: 128 rows, 256 columns)."""
     from syzygy_tpu_torch.renderer.frame import render_frame_packed, render_frame_rows

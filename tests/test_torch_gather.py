@@ -21,8 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+from syzygy_tpu_torch.kernels.build import LAUNCHES
 from syzygy_tpu_torch.kernels.gather import (
-    LAUNCHES,
     lane_gather,
     lane_gather_plain,
     lut_index,
@@ -83,9 +83,9 @@ def test_lane_gather_matches_pallas_g7():
     flat = torch.from_numpy(flat_np.copy())
     idx = lut_index(torch.from_numpy(d["u"]), torch.from_numpy(d["v"]), H, W)
     np.testing.assert_array_equal(lane_gather_plain(flat, idx).numpy(), ref)
-    before = LAUNCHES.lane_gather
+    before = LAUNCHES["lane_gather"]
     np.testing.assert_array_equal(lane_gather(flat, idx).numpy(), ref)
-    assert LAUNCHES.lane_gather == before  # the CPU takes the plain version
+    assert LAUNCHES["lane_gather"] == before  # the CPU takes the plain version
     np.testing.assert_array_equal(bench.g7(flat, torch.from_numpy(d["u"]), torch.from_numpy(d["v"])).numpy(), ref)
 
 
@@ -302,9 +302,9 @@ def test_kernel_matches_plain(cuda):
     d = bench.bench_inputs(n)
     flat = torch.from_numpy(d["lut"][:, :, 0].reshape(-1).copy()).to(cuda)
     idx = lut_index(torch.from_numpy(d["u"]).to(cuda), torch.from_numpy(d["v"]).to(cuda), H, W)
-    before = LAUNCHES.lane_gather
+    before = LAUNCHES["lane_gather"]
     out = lane_gather(flat, idx)
-    assert LAUNCHES.lane_gather == before + 1
+    assert LAUNCHES["lane_gather"] == before + 1
     torch.cuda.synchronize()
     assert torch.equal(out, lane_gather_plain(flat, idx))
 
@@ -325,8 +325,8 @@ def test_kernel_matches_plain_sizes(cuda, n):
     cases = [(flat[: H * W], idx[:n]), (flat[: H * W], idx[1:]), (flat[1 : H * W + 1], idx[:n])]
     cases.append((flat[: gather.MAX_TABLE], (idx[:n].long() * gather.MAX_TABLE // (H * W)).to(torch.int32)))
     for table, view in cases:
-        before = LAUNCHES.lane_gather
+        before = LAUNCHES["lane_gather"]
         out = gather._launch(table, view)
-        assert LAUNCHES.lane_gather == before + 1
+        assert LAUNCHES["lane_gather"] == before + 1
         torch.cuda.synchronize()
         assert torch.equal(out, lane_gather_plain(table, view))

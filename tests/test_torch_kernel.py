@@ -22,8 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from syzygy_tpu_torch.kernels.build import LAUNCHES
 from syzygy_tpu_torch.kernels.raster import (
-    LAUNCHES,
     TILE_H,
     TILE_W,
     TriSetup,
@@ -99,10 +99,10 @@ def test_kernel_matches_plain(cuda, scene, depth_only):
     arithmetic (fmas at the same places) in the same depth order; one
     launch is counted."""
     setup = _random_setup(cuda) if scene == "random" else _dense_setup(cuda)
-    count = (lambda: LAUNCHES.depth) if depth_only else (lambda: LAUNCHES.visibility)
-    before = count()
+    kind = "depth" if depth_only else "visibility"
+    before = LAUNCHES[kind]
     kern = rasterize(setup, W, H, depth_only=depth_only)
-    assert count() == before + 1
+    assert LAUNCHES[kind] == before + 1
     plain = rasterize_plain(setup, W, H, depth_only=depth_only)
     torch.cuda.synchronize()
     fields = ("depth",) if depth_only else ("depth", "tri", "b0", "b1")
@@ -598,9 +598,9 @@ def test_kernel_full_iteration_matches_plain(cuda, case, depth_only):
     setup = _on(setup, cuda)
     plain = rasterize_plain(setup, w, h, depth_only=depth_only, origin=origin)
     kind = "depth_full" if depth_only else "visibility_full"
-    before = getattr(LAUNCHES, kind)
+    before = LAUNCHES[kind]
     full = rasterize(setup, w, h, depth_only=depth_only, origin=origin, capacity=0)
-    assert getattr(LAUNCHES, kind) == before + 1
+    assert LAUNCHES[kind] == before + 1
     lists = bin_triangles(setup.coeffs, h, w, 1)
     forced = lists._replace(overflow=torch.ones((), dtype=torch.bool, device=cuda))
     overflowed = rasterize(setup, w, h, depth_only=depth_only, origin=origin, lists=forced)

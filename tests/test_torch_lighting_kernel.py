@@ -34,8 +34,8 @@ import torch
 
 from syzygy_tpu_torch.bench import all_slots_live
 from syzygy_tpu_torch.kernels import lighting, plain_gradient
+from syzygy_tpu_torch.kernels.build import LAUNCHES
 from syzygy_tpu_torch.kernels.lighting import (
-    LAUNCHES,
     TABLE_STRIDE,
     _TO_TEX_COORD,
     _normalize,
@@ -266,7 +266,7 @@ def test_cpu_and_grad_inputs_take_the_plain_version(monkeypatch):
     args = _small_case(2)
     gbuffer, camera, directional, spots, maps = args[0], args[1], args[2], args[5], args[7]
     counts = [args[3], args[4], args[6]]
-    before = LAUNCHES.lighting
+    before = LAUNCHES["lighting"]
     got = deferred_lighting(*args, pcf_f16=True, shadowless_eps=0.025)
     assert torch.equal(got, deferred_lighting_plain(*args, pcf_f16=True, shadowless_eps=0.025))
     assert got.abs().sum() > 0
@@ -274,7 +274,7 @@ def test_cpu_and_grad_inputs_take_the_plain_version(monkeypatch):
     lit = deferred_lighting(gbuffer, camera, directional._replace(color=color), *counts[:2], spots, counts[2], maps)
     lit.sum().backward()
     assert color.grad is not None and color.grad.abs().sum() > 0
-    assert LAUNCHES.lighting == before
+    assert LAUNCHES["lighting"] == before
     assert last_slot_mask("cpu") is None and evaluated_slots(None) is None
 
 
@@ -297,7 +297,7 @@ def test_import_builds_nothing():
         "from syzygy_tpu_torch.kernels import build\n"
         "bad = [n for n in loaded if n and ('syzygy' in str(n) or 'cuda' in str(n).lower())]\n"
         "assert not bad and not build._loaded, (bad, build._loaded)\n"
-        "assert lighting.LAUNCHES.lighting == 0\n"
+        "assert not build.LAUNCHES\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -355,9 +355,9 @@ def _both(state, gbuffer, maps, config, sun_shadow=None, **changes):
         sun_shadow=sun_shadow,
     )
     with torch.no_grad():
-        before = LAUNCHES.lighting
+        before = LAUNCHES["lighting"]
         kernel = deferred_lighting(*args, **flags)
-        launched = LAUNCHES.lighting - before
+        launched = LAUNCHES["lighting"] - before
         plain = deferred_lighting_plain(*args, **flags)
     torch.cuda.synchronize()
     activity = light_activity(
@@ -496,9 +496,9 @@ def test_kernel_gradient_is_the_plain_versions(cuda):
         state.directional_count, state.directional_skip_count, state.spot_lights, state.spot_count, maps,
     )
     flags = dict(pcf_f16=config.pcf_f16, shadowless_eps=config.shadowless_strength_eps)
-    before = LAUNCHES.lighting
+    before = LAUNCHES["lighting"]
     lit = deferred_lighting(*args, **flags)
-    assert LAUNCHES.lighting == before + 1
+    assert LAUNCHES["lighting"] == before + 1
     plain = deferred_lighting_plain(*args, **flags)
     _assert_bitwise(lit.detach(), plain.detach())
     weights = torch.rand(lit.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(5))
@@ -523,13 +523,13 @@ def test_captured_frame_holds_one_lighting_launch(cuda):
     spec = frame_param_spec(host)
     geometry = pack_geometry(scene, library, cuda)
     row = flatten_frame_params(host, spec)
-    before = LAUNCHES.lighting
+    before = LAUNCHES["lighting"]
     render_frame_packed(geometry, row, spec, config)  # the eager frame and the capture
-    assert LAUNCHES.lighting == before + 1  # the eager frame's; the captured one is not launched
+    assert LAUNCHES["lighting"] == before + 1  # the eager frame's; the captured one is not launched
     render_frame_packed(geometry, row, spec, config)
     render_frame_packed(geometry, row, spec, config)
     torch.cuda.synchronize()
-    assert LAUNCHES.lighting == before + 3
+    assert LAUNCHES["lighting"] == before + 3
     graph = captured_frames()[-1]
     assert graph["launches"]["lighting"] == 1
     assert 1 <= graph["lighting_slots"]() <= 3

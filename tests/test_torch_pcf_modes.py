@@ -5,7 +5,8 @@ shapes them).
 * The size gate: above 2048 texels the reference's taps read the f32 map
   whatever the storage flags say (``lighting.py:191-192``): bitwise at
   2048 and 4096 texels with f16 off and on and with q8.
-* The gather layouts ``bitmask``, ``window2d`` and ``seg8``: bitwise.
+* The reference's gather layouts ``bitmask``, ``window2d`` and ``seg8``:
+  each bitwise the port's one direct form.
 * ``q8``: bitwise the reference's op-by-op value; against its compiled
   value the occluded-tap counts differ on at most 0.1% of pixels, by at
   most one tap, and the factors otherwise by one rounding at the scale
@@ -73,13 +74,12 @@ def test_size_gate_matches_reference(size, flags):
 @pytest.mark.parametrize("size", [64, 128])
 @pytest.mark.parametrize("layout", ["bitmask", "window2d", "seg8"])
 def test_gather_layouts_match_reference(size, layout):
-    """The reference's gather layouts give its default taps; the port
-    takes its one direct form for them. Bitwise, f32 and f16 storage."""
+    """The reference's gather layouts give its default taps, which the
+    port's one direct form, called with no layout, gives too. Bitwise,
+    f32 and f16 storage."""
     inputs = pcf_inputs(17, size, 33, 65, 0.3)
     for f16 in (False, True):
-        np.testing.assert_array_equal(
-            port_pcf(inputs, f16=f16, **{layout: True}), reference_pcf(inputs, f16=f16, **{layout: True})
-        )
+        np.testing.assert_array_equal(port_pcf(inputs, f16=f16), reference_pcf(inputs, f16=f16, **{layout: True}))
 
 
 def occluded_taps(factor) -> np.ndarray:

@@ -140,11 +140,11 @@ def test_int_fields_refuse_fractions():
     assert apply_config_field(RenderConfig(), "shadow_dim", "256.0").shadow_dim == 256
 
 
-@pytest.mark.parametrize("field, value", [("raster_tile_h", "0"), ("oetf", '"x"'), ("supersample", "-1"), ("n_shadow_maps", "-2")])
+@pytest.mark.parametrize("field, value", [("tile_list_capacity", "-1"), ("oetf", '"x"'), ("supersample", "-1"), ("n_shadow_maps", "-2")])
 def test_config_edit_validated_whole(field, value):
     """Not inherited: the reference installs any config whose eight
     dimensions are positive (``properties.py:289-295``), so
-    ``raster_tile_h=0`` or ``oetf="x"`` reaches the renderer; the port runs
+    ``tile_list_capacity=-1`` or ``oetf="x"`` reaches the renderer; the port runs
     ``RenderConfig.check`` on the new config first and refuses it, leaving
     the old one as it was."""
     from syzygy_tpu.app.properties import apply_config_field as ref_apply_config_field
@@ -153,7 +153,7 @@ def test_config_edit_validated_whole(field, value):
     from syzygy_tpu_torch.app.properties import apply_config_field
     from syzygy_tpu_torch.renderer.frame import RenderConfig
 
-    if field in ("raster_tile_h", "oetf"):
+    if field in ("tile_list_capacity", "oetf"):
         assert getattr(ref_apply_config_field(RefConfig(), field, value), field) != getattr(RefConfig(), field)
     config = RenderConfig()
     with pytest.raises(ValueError):
@@ -179,7 +179,7 @@ def test_apply_config_field():
         apply_config_field(cfg, "nope", "1")
     with pytest.raises(ValueError):
         apply_config_field(cfg, "height", "0")
-    assert apply_config_field(cfg, "pcf_bitmask", "true").pcf_bitmask is True  # a former TPU-only mode
+    assert apply_config_field(cfg, "pcf_q8", "true").pcf_q8 is True  # a former TPU-only mode
 
 
 def _edited_pair():

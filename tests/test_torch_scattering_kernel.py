@@ -36,8 +36,8 @@ import pytest
 import torch
 
 from syzygy_tpu_torch.kernels import atmosphere, build, plain_gradient
+from syzygy_tpu_torch.kernels.build import LAUNCHES
 from syzygy_tpu_torch.kernels.atmosphere import (
-    LAUNCHES,
     _rays,
     _scattering_integral_components,
     _scattering_integral_components_plain,
@@ -241,7 +241,7 @@ def test_cpu_takes_the_plain_version(monkeypatch, form):
     monkeypatch.setattr(build, "load", refuse)
     public, plain = FORMS[form]
     args = _small_case(seed=2)
-    before = LAUNCHES.snapshot()
+    before = LAUNCHES.copy()
     got, want = public(*args), plain(*args)
     got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
     for g, w in zip(got, want):
@@ -252,7 +252,7 @@ def test_cpu_takes_the_plain_version(monkeypatch, form):
     out = public(args[0], args[1], origin, *args[3:])
     sum(o.sum() for o in (out if isinstance(out, tuple) else (out,))).backward()
     assert origin.grad is not None and origin.grad[torch.isfinite(origin.grad)].abs().sum() > 0
-    assert LAUNCHES.snapshot() == before
+    assert LAUNCHES.copy() == before
 
 
 @pytest.mark.parametrize("form", sorted(FORMS))
@@ -304,7 +304,7 @@ def test_import_builds_nothing():
         "from syzygy_tpu_torch.kernels import build\n"
         "bad = [n for n in loaded if n and ('syzygy' in str(n) or 'cuda' in str(n).lower())]\n"
         "assert not bad and not build._loaded, (bad, build._loaded)\n"
-        "assert atmosphere.LAUNCHES.snapshot() == {'scattering': 0, 'scattering_rays': 0}\n"
+        "assert not build.LAUNCHES\n"
         "assert build.SOURCES['scattering'] == ('--fmad=false',)\n"
         "assert list(build.ENTRY_POINTS['scattering']) == ['szg_scattering']\n"
         "print('ok')\n"
@@ -343,9 +343,9 @@ def _both(components: bool, args):
     and the launches and rays the kernel's call counted."""
     public, plain = FORMS["components" if components else "luminance"]
     with torch.no_grad():
-        before = LAUNCHES.snapshot()
+        before = LAUNCHES.copy()
         kernel = public(*args)
-        after = LAUNCHES.snapshot()
+        after = LAUNCHES.copy()
         want = plain(*args)
     torch.cuda.synchronize()
     return kernel, want, after["scattering"] - before["scattering"], after["scattering_rays"] - before["scattering_rays"]
@@ -444,9 +444,9 @@ def test_kernel_gradient_is_the_plain_versions(cuda, form):
     origin, direction, distance = (t.to(cuda) for t in _edge_rays(atmo, 256, seed=9))
     direction = direction.clone().requires_grad_(True)
     args = (atmo, lut, origin, direction, distance)
-    before = LAUNCHES.scattering
+    before = LAUNCHES["scattering"]
     out = public(*args)
-    assert LAUNCHES.scattering == before + 1
+    assert LAUNCHES["scattering"] == before + 1
     want = plain(*args)
     out, want = (out, want) if isinstance(out, tuple) else ((out,), (want,))
     _assert_bitwise(tuple(o.detach() for o in out), tuple(w.detach() for w in want), form)
@@ -477,14 +477,14 @@ def test_captured_frame_holds_its_integrals(cuda, aerial_lut, integrals):
     spec = frame_param_spec(host)
     geometry = pack_geometry(scene, library, cuda)
     row = flatten_frame_params(host, spec)
-    before = LAUNCHES.snapshot()
+    before = LAUNCHES.copy()
     render_frame_packed(geometry, row, spec, config)  # the eager frame and the capture
-    assert LAUNCHES.scattering == before["scattering"] + integrals  # the eager frame's
-    rays = LAUNCHES.scattering_rays - before["scattering_rays"]
+    assert LAUNCHES["scattering"] == before["scattering"] + integrals  # the eager frame's
+    rays = LAUNCHES["scattering_rays"] - before["scattering_rays"]
     render_frame_packed(geometry, row, spec, config)
     render_frame_packed(geometry, row, spec, config)
     torch.cuda.synchronize()
-    assert LAUNCHES.scattering == before["scattering"] + 3 * integrals
-    assert LAUNCHES.scattering_rays == before["scattering_rays"] + 3 * rays
+    assert LAUNCHES["scattering"] == before["scattering"] + 3 * integrals
+    assert LAUNCHES["scattering_rays"] == before["scattering_rays"] + 3 * rays
     graph = captured_frames()[-1]
     assert graph["launches"]["scattering"] == integrals and graph["launches"]["scattering_rays"] == rays

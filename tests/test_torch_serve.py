@@ -25,6 +25,7 @@ import pytest
 import torch
 
 import syzygy_tpu_torch  # noqa: F401  (precision pins)
+from test_torch_common import TPU_ONLY_FIELDS
 
 torch.set_num_threads(2)
 
@@ -33,6 +34,13 @@ SMALL = dict(width=64, height=32, shadow_dim=128, skyview_width=64, skyview_heig
              transmittance_width=64, transmittance_height=16)
 # no proxy from the environment: every request stays on this host
 OPENER = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def _ported_rows(rows):
+    """The reference viewer's property rows less the ``config.*`` rows of
+    its TPU-only fields, which the port does not have."""
+    tpu_only = {f"config.{name}" for name in TPU_ONLY_FIELDS}
+    return [row for row in rows if row["path"] not in tpu_only]
 
 
 def _config(**overrides):
@@ -95,9 +103,10 @@ def test_state_stats():
 
 
 def test_routes_match_the_reference_viewer():
-    """The property rows (scene and ``config.*``), the texture list and the
-    Draw Results of the port's viewer equal the JAX package's viewer's on
-    the same scene and config."""
+    """The property rows (scene and ``config.*``; of the config, the
+    fields the port has), the texture list and the Draw Results of the
+    port's viewer equal the JAX package's viewer's on the same scene and
+    config."""
     from syzygy_tpu.app.serve import _State as RefState
     from syzygy_tpu.renderer import RenderConfig as RefConfig
     from syzygy_tpu.scene import default_scene as ref_default
@@ -105,14 +114,14 @@ def test_routes_match_the_reference_viewer():
     ref_scene, ref_library = ref_default()
     ref = RefState(ref_scene, ref_library, RefConfig(**SMALL))
     port = _state()
-    assert port.properties() == ref.properties()
+    assert port.properties() == _ported_rows(ref.properties())
     assert port.textures() == ref.textures()
     assert port.stats()["draw_results"] == ref.stats()["draw_results"]
     port.handle_input("wd", (12.0, -5.0), 0.2)
     ref.handle_input("wd", (12.0, -5.0), 0.2)
     assert port.set_property("config.shadow_dim", "256") == ref.set_property("config.shadow_dim", "256") == 256
     assert port.set_property("spotlights[0].strength", "250") == ref.set_property("spotlights[0].strength", "250")
-    assert port.properties() == ref.properties()
+    assert port.properties() == _ported_rows(ref.properties())
 
 
 def test_texture_inspector_and_srgb_roundtrip():
@@ -245,7 +254,7 @@ def test_config_editing():
     assert state.set_property("config.pcf_f16", "False") is False
     assert state.set_property("config.shadow_dim", "256") == 256
     before = state.config
-    for field, value in (("raster_tile_h", "0"), ("oetf", "gamma"), ("shadow_dim", "100.5")):
+    for field, value in (("tile_list_capacity", "-1"), ("oetf", "gamma"), ("shadow_dim", "100.5")):
         with pytest.raises(ValueError):
             state.set_config(field, value)
     assert state.config is before
@@ -366,8 +375,9 @@ def test_http_layer(port_server, reference_server):
     base, thread, out = port_server
     status, page = _request(base, "/")
     assert status == 200 and b"syzygy_tpu" in page and b"drawSpark" in page
-    for route in ("/api/properties", "/api/textures"):
-        assert json.loads(_request(base, route)[1]) == json.loads(_request(reference_server, route)[1])
+    port_rows, ref_rows = (json.loads(_request(server, "/api/properties")[1]) for server in (base, reference_server))
+    assert port_rows == _ported_rows(ref_rows)
+    assert json.loads(_request(base, "/api/textures")[1]) == json.loads(_request(reference_server, "/api/textures")[1])
     for path in ("/texture.png?name=nope", "/no-such-route"):
         assert _request(base, path)[0] == 404
     assert _request(base, "/api/set", b"{not json")[0] == 400
@@ -420,7 +430,7 @@ def test_refusals_answer_4xx(reference_server, tmp_path):
     _wait_up(base)
     cases = {
         bad_set: 400,
-        b'{"path": "config.raster_tile_h", "value": "0"}': 400,
+        b'{"path": "config.tile_list_capacity", "value": "-1"}': 400,
         b'{"path": "config.shadow_dim", "value": "100.5"}': 400,
         b'{"path": "cameras[7].fov_degrees", "value": "60"}': 400,
     }
@@ -432,5 +442,5 @@ def test_refusals_answer_4xx(reference_server, tmp_path):
         message = json.loads(body)["error"]
         assert status == code and word in message and "Traceback" not in message
     rows = {p["path"]: p["value"] for p in json.loads(_request(base, "/api/properties")[1])}
-    assert rows["config.raster_tile_h"] == "64" and rows["config.shadow_dim"] == "128"
+    assert rows["config.tile_list_capacity"] == "448" and rows["config.shadow_dim"] == "128"
     assert rows["cameras[0].fov_degrees"] == "70"

@@ -148,15 +148,64 @@ def test_layers_out_of_place_and_nested_recordings_refuse(small_ring):
 
 
 def test_stamps_on_the_cpu_count_no_launch(small_ring):
-    from syzygy_tpu_torch.kernels.stamp import LAUNCHES
+    from syzygy_tpu_torch.kernels.build import LAUNCHES
 
     trace = FrameTrace("cpu")
-    before = LAUNCHES.stamp
+    before = LAUNCHES["stamp"]
     with recording(trace):
         with layer("state"):
             pass
     trace.replayed((0.0, 0.0), (0.0, 0.0))  # no graph: nothing launched
-    assert LAUNCHES.stamp == before and trace.replays == 1 and trace.nodes is None
+    assert LAUNCHES["stamp"] == before and trace.replays == 1 and trace.nodes is None
+
+
+class _FakeLibrary:
+    """Stands in for a built kernel library: records each call of an entry
+    point and returns ``err``."""
+
+    def __init__(self, err=0):
+        self.err, self.calls = err, []
+
+    def __getattr__(self, entry):
+        return lambda *args: self.calls.append((entry, args)) or self.err
+
+
+@pytest.mark.parametrize("err", [0, 700])
+def test_launch_counts_by_kind_and_by_capture(monkeypatch, err):
+    """``kernels.build.launch`` passes the device index and the current
+    raw stream after the arguments and raises on a CUDA error, naming the
+    entry point. A launch outside a capture counts into ``LAUNCHES``; one
+    captured inside ``capture_record`` into that record alone; one
+    captured outside a record nowhere. Records do not nest."""
+    from syzygy_tpu_torch.kernels import build
+
+    library = _FakeLibrary(err)
+    capturing = [False]
+    monkeypatch.setattr(build, "load", lambda name: library)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 1000 + index, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    monkeypatch.setattr(build, "LAUNCHES", type(build.LAUNCHES)())
+    device = torch.device("cuda", 3)
+    if err:
+        with pytest.raises(RuntimeError, match="szg_lighting failed: CUDA error 700"):
+            build.launch("szg_lighting", device, 1, 2, counts={"lighting": 1})
+        assert not build.LAUNCHES
+        return
+    build.launch("szg_scattering", device, 5, counts={"scattering": 1, "scattering_rays": 64})
+    assert library.calls == [("szg_scattering", (5, 3, 1003))]
+    capturing[0] = True
+    with build.capture_record() as record:
+        build.launch("szg_stamp", device, counts={"stamp": 1})
+        build.launch("szg_stamp", device, counts={"stamp": 1})
+        with pytest.raises(RuntimeError):
+            with build.capture_record():
+                pass
+    build.launch("szg_lane_gather", device, counts={"lane_gather": 1})  # captured, no record open
+    assert record == {"stamp": 2}
+    assert build.LAUNCHES == {"scattering": 1, "scattering_rays": 64}
+    capturing[0] = False
+    build.LAUNCHES.update(record)  # what a replay adds
+    assert build.LAUNCHES == {"scattering": 1, "scattering_rays": 64, "stamp": 2}
 
 
 def _made_up_ring(rows, replays, layer_names):
@@ -217,14 +266,14 @@ def test_replay_carries_every_stamp_and_its_layers_sum_to_its_interval(cuda):
     """A 1080p replay: the LUT frame's eight layers, their sum within 0.5% of the
     replay's interval by CUDA events (the second replay's, so the graph's
     launch is not inside it), and the node counts summing to the total."""
-    from syzygy_tpu_torch.kernels.stamp import LAUNCHES
+    from syzygy_tpu_torch.kernels.build import LAUNCHES
     from syzygy_tpu_torch.renderer.frame import render_frame_packed
 
     geometry, _, spec, row, config = _frame_inputs(cuda, width=1920, height=1080, shadow_dim=1024,
                                                    skyview_width=2048, skyview_height=1024)
-    LAUNCHES.reset()
+    before = LAUNCHES["stamp"]
     render_frame_packed(geometry, row, spec, config)  # the eager frame and the capture
-    assert LAUNCHES.stamp == 0  # captured, not launched
+    assert LAUNCHES["stamp"] == before  # captured, not launched
     render_frame_packed(geometry, row, spec, config)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -245,7 +294,8 @@ def test_replay_carries_every_stamp_and_its_layers_sum_to_its_interval(cuda):
     assert nodes["stamps"] == len(LUT_LAYERS) + 1
     assert sum(nodes[name] for name in LUT_LAYERS) + nodes["stamps"] == nodes["total"]
     assert all(nodes[name] > 0 for name in LUT_LAYERS)
-    assert LAUNCHES.stamp == 2 * (len(LUT_LAYERS) + 1)  # the stamps each replay launched
+    assert LAUNCHES["stamp"] == before + 2 * (len(LUT_LAYERS) + 1)  # the stamps each replay launched
+    assert graph["launches"]["stamp"] == len(LUT_LAYERS) + 1
 
 
 @pytest.mark.cuda
