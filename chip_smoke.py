@@ -10,9 +10,8 @@ no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``syzygy_tpu_torch/csrc/*.cu`` (the raster,
-   the lighting, the in-scattering integral, the lane gather and the layer
-   stamp, one ``nvcc`` each,
-   concurrently), with ptxas's
+   the lighting, the in-scattering integral, the sky pass, the lane gather
+   and the layer stamp, one ``nvcc`` each, concurrently), with ptxas's
    register report; then the C++ host core (``syzygy_tpu_torch/native.py``
    builds ``csrc/szg_native.cpp`` with ``g++``), which must load, and
    ``Scene.shadow_bounds`` through it on 40 seeded rotated-caster versions
@@ -46,9 +45,15 @@ no result line):
    sky-view rows and the aerial froxels; the chess flagship's quirk-exact
    frame: the sky-view rows, the per-pixel integral and the metallic
    bounce's), each with its launches, the kernel's device time, the whole
-   call's, the plain version's and the operations bound;
+   call's, the plain version's and the operations bound; the LUT sky
+   camera pass (``csrc/sky.cu``) against ``sky_camera_pass_lut_plain`` at
+   the cells' settings (1920x1088, 8192^2 maps, q8 sky-view) on the
+   editor's default scene (no metallic bounce) and the chess flagship (the
+   bounce), each with the kernel's device time, the whole call's (the
+   table's prologue included), the plain pass's and the bytes bound;
 4. the main paths, each with its kernel launches counted from just before
-   to just after (the stamps', the lighting's and the scattering's too:
+   to just after (the stamps', the lighting's, the scattering's and the
+   sky's too:
    each replay launches those its graph holds): 4 frames of the default scene and 3 of the chess
    flagship through ``renderer.frame.render_frame`` at the default
    1920x1080 RenderConfig (CUDA-event ms/frame, peak memory); the chess
@@ -1188,6 +1193,93 @@ def phase_compare_scattering(device):
     return reports
 
 
+SKY_PLAIN_REPS = 3  # the plain sky pass's calls per timing (~16 ms and ~1,250 kernels each)
+SKY_GEOMETRY_BYTES = 5 * 16 + 4 + 12 + 4 + 12  # planes, depth, lit colour, one sun-map texel in; colour out
+SKY_ENVIRONMENT_BYTES = 4 + 16 + 12  # depth and the world position's texel in; colour out
+
+
+def sky_call(scene, library, config, device):
+    """The sky pass's (args, keywords) as one eager frame calls it."""
+    from syzygy_tpu_torch.renderer import frame
+    from syzygy_tpu_torch.renderer.frame import render_frame_eager
+    from syzygy_tpu_torch.scene.pack import pack_frame_params, pack_geometry, upload_frame_params
+
+    geometry = pack_geometry(scene, library, device)
+    params = upload_frame_params(pack_frame_params(scene, config.width / config.height), device)
+    calls = []
+    real = frame.sky_camera_pass
+
+    def spy(*args, **kwargs):
+        calls.append((args[:8] + (args[8].clone(),) + args[9:], kwargs))
+        return real(*args, **kwargs)
+
+    frame.sky_camera_pass = spy
+    try:
+        with torch.no_grad():
+            render_frame_eager(geometry, params, config)
+    finally:
+        frame.sky_camera_pass = real
+    torch.cuda.synchronize()
+    return calls[0]
+
+
+def phase_compare_sky(device):
+    """The LUT sky camera pass (``csrc/sky.cu``) vs
+    ``sky_camera_pass_lut_plain`` on the card, bitwise, at the cells'
+    settings (1920x1088, the sun's 8192^2 map in f32 taps, the q8 sky-view
+    LUT, the t_seg rows): the editor's default scene with its sun animated
+    (no metallic bounce) and the chess flagship (the bounce). Each case:
+    one launch; the kernel's own device time (``ms``), the whole call (the
+    table's prologue included) by CUDA events and on the device, and its
+    kernels; the plain pass likewise; the bytes bound (a geometry pixel's
+    ``SKY_GEOMETRY_BYTES``, an environment pixel's
+    ``SKY_ENVIRONMENT_BYTES``, at the HBM rate)."""
+    from syzygy_tpu_torch.bench import chess_scene, default_scene_animated
+    from syzygy_tpu_torch.kernels import sky as S
+    from syzygy_tpu_torch.kernels.build import LAUNCHES
+
+    reports = []
+    for name in ("editor", "chess"):
+        scene, library = chess_scene() if name == "chess" else default_scene_animated()
+        config = default_scene_config(scene, library, width=1920, height=1080, shadow_dim=8192)
+        args, kw = sky_call(scene, library, config, device)
+        settings = (kw["draw_extent"], kw["aerial_t_max"], kw["metallic_reflection"], kw["pcf_f16"], kw["pcf_q8"],
+                    kw["row_origin"])
+
+        def call():
+            with torch.no_grad():
+                return S.sky_camera_pass(*args, **kw)
+
+        def plain():
+            with torch.no_grad():
+                return S.sky_camera_pass_lut_plain(*args, kw["aerial"], kw["tseg_rows"], kw["sun_shadow"], *settings)
+
+        before = LAUNCHES.copy()
+        kern = call()
+        launches = (LAUNCHES - before)["sky"]
+        want = plain()
+        torch.cuda.synchronize()
+        differ = int((kern.view(torch.int32) != want.view(torch.int32)).any(dim=-1).sum())
+        check(differ == 0, f"sky pass ({name}) differs from its plain version at {differ} pixels")
+        check(launches == 1, f"sky pass ({name}) launched {launches} kernels, not 1")
+        depth, position = args[1], args[2].world_position
+        env = int(((depth == 0) | (position[..., 1] > 0)).sum())
+        pixels = depth.numel()
+        report = {"name": f"sky_{name}", "shape": list(depth.shape), "metallic": kw["metallic_reflection"],
+                  "environment_pixels": env, "max_abs_err": 0.0, "bitwise": True, "launches": launches,
+                  "ms": device_ms(call, kernel="sky_kernel"), "call_ms": time_ms(call),
+                  "call_device_ms": device_ms(call)}
+        report["plain_ms"] = time_ms(plain, SKY_PLAIN_REPS)
+        report["plain_device_ms"] = device_ms(plain, SKY_PLAIN_REPS)
+        report["bound_ms"], report["bound_by"] = bound(
+            (pixels - env) * SKY_GEOMETRY_BYTES + env * SKY_ENVIRONMENT_BYTES, 0)
+        print("compare " + json.dumps(report), flush=True)
+        reports.append(report)
+        del args, kw, kern, want
+        torch.cuda.empty_cache()
+    return reports
+
+
 BENCH_FRAMES = 8  # replayed frames per scene in phase_bench
 
 
@@ -1937,20 +2029,21 @@ def main() -> int:
         print(f"phase {name}: {seconds[name]:.2f} s", flush=True)
         return out
 
-    stamp_launches, lighting_launches, scattering_launches = {}, {}, {}
+    stamp_launches, lighting_launches, scattering_launches, sky_launches = {}, {}, {}, {}
 
     def main_path(name, fn, *args, **kwargs):
-        """``timed``, with the stamp, lighting and scattering launches of
-        the frames it runs (a replay launches those its graph holds)."""
+        """``timed``, with the stamp, lighting, scattering and sky launches
+        of the frames it runs (a replay launches those its graph holds)."""
         before = build.LAUNCHES.copy()
         out = timed(name, fn, *args, **kwargs)
         made = build.LAUNCHES - before
         stamp_launches[name] = made["stamp"]
         lighting_launches[name] = made["lighting"]
         scattering_launches[name] = made["scattering"]
+        sky_launches[name] = made["sky"]
         print(f"phase {name}: {stamp_launches[name]} stamp launches, {lighting_launches[name]} lighting launches, "
-              f"{scattering_launches[name]} scattering launches over {made['scattering_rays']} rays",
-              flush=True)
+              f"{scattering_launches[name]} scattering launches over {made['scattering_rays']} rays, "
+              f"{sky_launches[name]} sky launches", flush=True)
         return out
 
     try:
@@ -1963,6 +2056,7 @@ def main() -> int:
         stamp_report = timed("compare_stamp", phase_compare_stamp, device)
         lighting_reports = timed("compare_lighting", phase_compare_lighting, device)
         scattering_reports = timed("compare_scattering", phase_compare_scattering, device)
+        sky_reports = timed("compare_sky", phase_compare_sky, device)
         scene, library = default_scene()
         scene.tick(0.0)
         default_frames = main_path("frames_default", phase_frames, "default", scene, library, device, n_frames=4,
@@ -2057,6 +2151,14 @@ def main() -> int:
             "plain_ms": scattering_reports[-2]["plain_ms"], "bound_ms": scattering_reports[-2]["bound_ms"],
             "bound_by": scattering_reports[-2]["bound_by"], "library_ms": None,
             "cases": [{k: r[k] for k in ("name", "rays", "ms", "plain_ms", "bound_ms")} for r in scattering_reports],
+        },
+        {
+            "name": "sky", "route": "cuda", "source": "syzygy_tpu_torch/csrc/sky.cu",
+            "replaces": None, "launches": sum(sky_launches.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in sky_reports), "ms": sky_reports[-1]["ms"],
+            "plain_ms": sky_reports[-1]["plain_ms"], "bound_ms": sky_reports[-1]["bound_ms"],
+            "bound_by": sky_reports[-1]["bound_by"], "library_ms": None,
+            "cases": [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms")} for r in sky_reports],
         },
     ]
     if any(k["launches"] < 1 for k in kernels):

@@ -28,26 +28,22 @@
 // scattering_table), copied into shared memory by each block.
 //
 // Bitwise the plain version on the card. Each operation rounds as the
-// PyTorch CUDA operation it stands for, and this file is built with
-// --fmad=false, so nothing is contracted into a fused multiply-add:
-// - every product, sum and quotient is __fmul_rn/__fadd_rn/__fsub_rn/
-//   __fdiv_rn in the plain version's order;
-// - torch.sum over a last axis of 3 runs on two threads of a reduction
-//   that start from +0, so it takes (a0 + a2) + a1, a zero sum +0;
-// - a tensor divided by a Python number is multiplied by the number's f32
-//   reciprocal (PyTorch's div_true for a CPU scalar): 1/15, 1/32; a tensor
-//   divided by a 0-dim device tensor is divided;
-// - sqrt_rn is the correctly rounded __fsqrt_rn; torch.exp calls expf,
-//   torch.pow powf;
-// - torch.clamp passes NaN through; a texel's index is the int64
-//   conversion of floor(x), its neighbour edge-clamped, as
-//   sample_lut_bilinear computes them.
+// PyTorch CUDA operation it stands for (csrc/f32.h; the LUT's samples are
+// csrc/transmittance.h's, which the sky pass shares), and this file is
+// built with --fmad=false, so nothing is contracted into a fused
+// multiply-add. A tensor divided by a Python number is multiplied by the
+// number's reciprocal, taken in f64 and rounded to f32 (PyTorch's div_true
+// for a CPU scalar): 1/15, 1/32; a tensor divided by a 0-dim device tensor
+// is divided; torch.exp calls expf, torch.pow powf.
 
 #include <cuda_runtime.h>
 
 #include "launch.h"
+#include "transmittance.h"
 
 namespace {
+
+using namespace szg;
 
 constexpr int kThreads = 128;
 constexpr int kSteps = 32;  // SKYVIEW_SAMPLES
@@ -68,7 +64,6 @@ constexpr int kCosSunRadius = 23;
 constexpr int kSunNorm = 24;  // vec_norm(incident_direction_sun)
 
 // Python numbers as PyTorch casts them to f32
-constexpr float kMinNorm = static_cast<float>(1e-20);  // _norm
 constexpr float kMinRatio = static_cast<float>(1e-20);  // the transmittance ratios
 constexpr float kMinSpan = static_cast<float>(1e-12);
 constexpr float kMinAltitude = static_cast<float>(-0.001);
@@ -88,41 +83,17 @@ struct Params {
   const float* origin;  // (3,) with origin_stride 0, (n, 3) with 3
   const float* direction;  // (n, 3)
   const float* distance;  // (n,)
-  const float* lut;  // (lut_h, lut_w, 3) transmittance
+  Transmittance lut;  // its radii set by each thread
   const float* table;  // (kTable,) the atmosphere
   float* out0;  // (n, 3): luminance, or A_r
   float* out1;  // (n, 3): A_m, components only
   long long n;
-  int origin_stride, lut_h, lut_w;
-  // tex_coord_from_unit_range's and sample_lut_bilinear's Python numbers
-  float u_offset, u_scale, v_offset, v_scale, x_max, y_max;
+  int origin_stride;
 };
 
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
-
-__device__ __forceinline__ float sum3(float a0, float a1, float a2) { return add(add(add(a0, a2), a1), 0.0f); }
-
-__device__ __forceinline__ float dot3(const float* a, const float* b) {
-  return sum3(mul(a[0], b[0]), mul(a[1], b[1]), mul(a[2], b[2]));
-}
-
-__device__ __forceinline__ float clamp_min(float v, float lo) { return isnan(v) ? v : fmaxf(v, lo); }
-
-__device__ __forceinline__ float clamp(float v, float lo, float hi) {
-  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
-}
-
-__device__ __forceinline__ float safe_sqrt(float v) { return __fsqrt_rn(clamp_min(v, 0.0f)); }
-
-// _norm: sqrt_rn(clamp(sum(v * v), 1e-20))
-__device__ __forceinline__ float norm3(const float* v) { return __fsqrt_rn(clamp_min(dot3(v, v), kMinNorm)); }
-
-// The atmosphere's values and the step-invariant terms of the LUT mapping
+// The atmosphere's values
 struct Atmosphere {
-  float planet_radius, atmosphere_radius, atm_r2, pl_r2, h, h_safe;
+  float planet_radius;
   float scale_rayleigh, scale_mie;
   float scattering_rayleigh[3], absorption_rayleigh[3], scattering_mie[3], scattering_ozone[3],
       absorption_ozone[3], sun[3];
@@ -131,11 +102,6 @@ struct Atmosphere {
 
 __device__ __forceinline__ void load_atmosphere(const float* t, Atmosphere& a) {
   a.planet_radius = t[kPlanetRadius];
-  a.atmosphere_radius = t[kAtmosphereRadius];
-  a.atm_r2 = mul(a.atmosphere_radius, a.atmosphere_radius);
-  a.pl_r2 = mul(a.planet_radius, a.planet_radius);
-  a.h = safe_sqrt(sub(a.atm_r2, a.pl_r2));
-  a.h_safe = clamp_min(a.h, kMinSpan);
   a.scale_rayleigh = t[kScaleRayleigh];
   a.scale_mie = t[kScaleMie];
   for (int c = 0; c < 3; ++c) {
@@ -151,91 +117,13 @@ __device__ __forceinline__ void load_atmosphere(const float* t, Atmosphere& a) {
   a.sun_norm = t[kSunNorm];
 }
 
-// The radius's half of transmittance_rmu_to_uv and of the bilinear sample:
-// shared by the samples that one radius takes
-struct Row {
-  float radius, r2, rho, d_min, d_max, fy;
-  int y0, y1;
-};
-
-// A texel's index: floor(x) of an x clamped to [0, extent - 1]; the clamp
-// of the index only guards a NaN x
-__device__ __forceinline__ int texel_index(long long floor_x, int extent) {
-  return static_cast<int>(min(max(floor_x, 0LL), static_cast<long long>(extent - 1)));
-}
-
-__device__ __forceinline__ Row row_at(const Params& p, const Atmosphere& a, float radius) {
-  Row r;
-  r.radius = radius;
-  r.r2 = mul(radius, radius);
-  r.rho = safe_sqrt(sub(r.r2, a.pl_r2));
-  r.d_min = sub(a.atmosphere_radius, radius);
-  r.d_max = add(r.rho, a.h);
-  const float x_radius = div(r.rho, a.h_safe);
-  const float v = add(mul(x_radius, p.v_scale), p.v_offset);
-  const float y = clamp(sub(mul(v, static_cast<float>(p.lut_h)), 0.5f), 0.0f, p.y_max);
-  const long long floor_y = static_cast<long long>(floorf(y));
-  r.fy = sub(y, static_cast<float>(floor_y));
-  r.y0 = texel_index(floor_y, p.lut_h);
-  r.y1 = min(r.y0 + 1, p.lut_h - 1);
-  return r;
-}
-
-// sample_transmittance_rmu(lut, atmo, row.radius, mu)
-__device__ __forceinline__ void sample_rmu(const Params& p, const Atmosphere& a, const Row& r, float mu,
-                                           float* out) {
-  const float d = clamp_min(
-      add(mul(-r.radius, mu), safe_sqrt(add(mul(r.r2, sub(mul(mu, mu), 1.0f)), a.atm_r2))), 0.0f);
-  const float x_mu = div(sub(d, r.d_min), clamp_min(sub(r.d_max, r.d_min), kMinSpan));
-  const float u = add(mul(x_mu, p.u_scale), p.u_offset);
-  const float x = clamp(sub(mul(u, static_cast<float>(p.lut_w)), 0.5f), 0.0f, p.x_max);
-  const long long floor_x = static_cast<long long>(floorf(x));
-  const float fx = sub(x, static_cast<float>(floor_x));
-  const int x0 = texel_index(floor_x, p.lut_w);
-  const int x1 = min(x0 + 1, p.lut_w - 1);
-  const float* top = p.lut + static_cast<long long>(r.y0) * p.lut_w * 3;
-  const float* bot = p.lut + static_cast<long long>(r.y1) * p.lut_w * 3;
-  const float gx = sub(1.0f, fx), gy = sub(1.0f, r.fy);
-  for (int c = 0; c < 3; ++c) {
-    const float t = add(mul(__ldg(top + 3 * x0 + c), gx), mul(__ldg(top + 3 * x1 + c), fx));
-    const float b = add(mul(__ldg(bot + 3 * x0 + c), gx), mul(__ldg(bot + 3 * x1 + c), fx));
-    out[c] = add(mul(t, gy), mul(b, r.fy));
-  }
-}
-
-// sample_transmittance_ray
-__device__ __forceinline__ void sample_ray(const Params& p, const Atmosphere& a, const float* position,
-                                           const float* direction, float direction_norm, float* out) {
-  const float radius = norm3(position);
-  const float mu = div(dot3(position, direction), mul(radius, direction_norm));
-  sample_rmu(p, a, row_at(p, a, radius), mu, out);
-}
-
-// sample_transmittance_segment
-__device__ __forceinline__ void sample_segment(const Params& p, const Atmosphere& a, const float* from,
-                                               const float* to, float* out) {
-  float diff[3];
-  for (int c = 0; c < 3; ++c) diff[c] = sub(to[c], from[c]);
-  const float length = norm3(diff);
-  float direction[3];
-  for (int c = 0; c < 3; ++c) direction[c] = div(diff[c], length);
-  const bool flip = dot3(from, direction) < 0.0f;
-  float d[3];
-  for (int c = 0; c < 3; ++c) d[c] = flip ? -direction[c] : direction[c];
-  const float d_norm = norm3(d);
-  float ta[3], tb[3];
-  sample_ray(p, a, flip ? to : from, d, d_norm, ta);
-  sample_ray(p, a, flip ? from : to, d, d_norm, tb);
-  for (int c = 0; c < 3; ++c) out[c] = clamp(div(ta[c], clamp_min(tb[c], kMinRatio)), 0.0f, 1.0f);
-}
-
 // sample_transmittance_sun(lut, atmo, row.radius, cos_sun_zenith)
-__device__ __forceinline__ void sample_sun(const Params& p, const Atmosphere& a, const Row& r,
+__device__ __forceinline__ void sample_sun(const Transmittance& lut, const Atmosphere& a, const Row& r,
                                            float cos_sun_zenith, float* out) {
   const float sin_horizon = div(a.planet_radius, r.radius);
   const float cos_horizon = -safe_sqrt(sub(1.0f, mul(sin_horizon, sin_horizon)));
   float through[3];
-  sample_rmu(p, a, r, cos_sun_zenith, through);
+  sample_rmu(lut, r, cos_sun_zenith, through);
   const float edge0 = mul(-sin_horizon, a.sin_sun_radius);
   const float edge1 = mul(sin_horizon, a.sin_sun_radius);
   const float x = sub(cos_sun_zenith, mul(cos_horizon, a.cos_sun_radius));
@@ -284,7 +172,7 @@ struct Step {
   float rayleigh[3], mie[3], t_sun[3], integral[3], t_begin[3];
 };
 
-__device__ __forceinline__ Step march_step(const Params& p, const Atmosphere& a, const Ray& ray, int i) {
+__device__ __forceinline__ Step march_step(const Transmittance& lut, const Atmosphere& a, const Ray& ray, int i) {
   const float t = mul(ray.d_sample, static_cast<float>(i));
   const float t_next = mul(ray.d_sample, static_cast<float>(i + 1));
   float begin[3], end[3];
@@ -301,13 +189,13 @@ __device__ __forceinline__ Step march_step(const Params& p, const Atmosphere& a,
   const float altitude = sub(norm3(begin), a.planet_radius);
 
   Step s;
-  const Row row = row_at(p, a, radius);
-  sample_sun(p, a, row, mu_sun, s.t_sun);
+  const Row row = row_at(lut, radius);
+  sample_sun(lut, a, row, mu_sun, s.t_sun);
   const Extinction e = sample_extinction(a, altitude);
   float s_end[3];
-  sample_rmu(p, a, row, ray.up ? mu : -mu, s_end);
+  sample_rmu(lut, row, ray.up ? mu : -mu, s_end);
   float t_path[3];
-  sample_segment(p, a, begin, end, t_path);
+  sample_segment(lut, begin, end, t_path);
   const bool tiny = t < kTinyStep;
   for (int c = 0; c < 3; ++c) {
     const float ratio = ray.up ? div(ray.start_up[c], clamp_min(s_end[c], kMinRatio))
@@ -321,7 +209,8 @@ __device__ __forceinline__ Step march_step(const Params& p, const Atmosphere& a,
 }
 
 // The ray's set-up (_march_setup, _ray_step_setup)
-__device__ __forceinline__ Ray ray_setup(const Params& p, const Atmosphere& a, long long i, float* direction) {
+__device__ __forceinline__ Ray ray_setup(const Params& p, const Transmittance& lut, const Atmosphere& a, long long i,
+                                         float* direction) {
   Ray ray;
   const float* o = p.origin + i * p.origin_stride;
   for (int c = 0; c < 3; ++c) ray.origin[c] = __ldg(o + c), direction[c] = p.direction[3 * i + c];
@@ -338,9 +227,9 @@ __device__ __forceinline__ Ray ray_setup(const Params& p, const Atmosphere& a, l
   ray.mu_sun_step = safe_sqrt(sub(mul(ray.mu_sun, ray.mu),
                                   safe_sqrt(mul(sub(1.0f, mul(ray.mu_sun, ray.mu_sun)),
                                                 sub(1.0f, mul(ray.mu, ray.mu))))));
-  const Row origin_row = row_at(p, a, ray.radius);
-  sample_rmu(p, a, origin_row, ray.mu, ray.start_up);
-  sample_rmu(p, a, origin_row, -ray.mu, ray.start_dn);
+  const Row origin_row = row_at(lut, ray.radius);
+  sample_rmu(lut, origin_row, ray.mu, ray.start_up);
+  sample_rmu(lut, origin_row, -ray.mu, ray.start_dn);
   return ray;
 }
 
@@ -355,8 +244,10 @@ __global__ void __launch_bounds__(kThreads) scattering_kernel(const Params p) {
   if (i >= p.n) return;
   Atmosphere a;
   load_atmosphere(table, a);
+  Transmittance lut = p.lut;
+  set_radii(lut, table[kPlanetRadius], table[kAtmosphereRadius]);
   float direction[3];
-  const Ray ray = ray_setup(p, a, i, direction);
+  const Ray ray = ray_setup(p, lut, a, i, direction);
 
   float phase_r = 0.0f, phase_m = 0.0f;
   if (!kComponents) {  // phase_rayleigh and phase_mie of the incident cosine
@@ -372,7 +263,7 @@ __global__ void __launch_bounds__(kThreads) scattering_kernel(const Params p) {
   float x0[3] = {}, x1[3] = {};
   for (int k = 0; k < kSteps; ++k) {
     if (k == 0 || !same) {
-      const Step s = march_step(p, a, ray, k);
+      const Step s = march_step(lut, a, ray, k);
       for (int c = 0; c < 3; ++c) {
         if (kComponents) {
           const float common = mul(mul(s.t_sun[c], s.integral[c]), s.t_begin[c]);
@@ -412,12 +303,7 @@ extern "C" int szg_scattering(const float* origin, int origin_stride, const floa
   if (n == 0) return (int)cudaSuccess;
   szg::DeviceScope scope(device);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // tex_coord_from_unit_range's 0.5 / dim and 1 - 1 / dim, and the clamp's
-  // dim - 1, as Python computes them and PyTorch casts them to f32
-  Params p{origin, direction, distance, lut, table, out0, out1, n, origin_stride, lut_h, lut_w,
-           static_cast<float>(0.5 / lut_w), static_cast<float>(1.0 - 1.0 / lut_w),
-           static_cast<float>(0.5 / lut_h), static_cast<float>(1.0 - 1.0 / lut_h),
-           static_cast<float>(lut_w - 1.0), static_cast<float>(lut_h - 1.0)};
+  Params p{origin, direction, distance, transmittance_lut(lut, lut_h, lut_w), table, out0, out1, n, origin_stride};
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (components) {
     scattering_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(p);

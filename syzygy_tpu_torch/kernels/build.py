@@ -42,12 +42,13 @@ SOURCES = {
     # the lighting rounds every operation as the plain version's PyTorch
     # operations do (__fmul_rn/__fadd_rn) and must contract nothing
     "lighting": ("--fmad=false",),
-    # the in-scattering integral likewise
+    # the in-scattering integral and the sky pass likewise
     "scattering": ("--fmad=false",),
+    "sky": ("--fmad=false",),
     "gather": (),
     "stamp": (),
 }
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 # source name -> {entry point: (argtypes, restype)}
 ENTRY_POINTS = {
     # coeffs, boxes | n_slots | slots, offsets, overflow | full, tiles_y,
@@ -62,6 +63,18 @@ ENTRY_POINTS = {
     # origin, origin_stride, direction, distance, lut, lut_h, lut_w, table,
     # out0, out1, n, components, device, stream
     "scattering": {"szg_scattering": ([_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _LL, _I, _I, _P], _I)},
+    # diffuse, specular, normal, position, orm, depth, color, sun_shadow,
+    # table, lut | lut_h, lut_w | sky, sky_scale | sky_h, sky_w, sky_format
+    # | tseg, tseg_h | volume | n_y, n_x, n_s | t_max | maps | size, f16 |
+    # codes, lo, step | n_w | metallic, rows, width, row_origin, draw_w,
+    # draw_h | out | device, stream
+    "sky": {
+        "szg_sky": (
+            [_P] * 10 + [_I] * 2 + [_P] * 2 + [_I] * 3 + [_P, _I, _P] + [_I] * 3 + [_D, _P] + [_I] * 2 + [_P] * 3
+            + [_I] * 7 + [_P, _I, _P],
+            _I,
+        ),
+    },
     # table, table_n, idx, out, n, device, stream
     "gather": {"szg_lane_gather": ([_P, _LL, _P, _P, _LL, _I, _P], _I)},
     # ring, seq, rows, stride, mark, last, device, stream | stream, nodes
@@ -75,7 +88,7 @@ _SOURCE_OF = {entry: name for name, entries in ENTRY_POINTS.items() for entry in
 _loaded: dict[str, ctypes.CDLL] = {}
 # kernel launches by kind: the raster's visibility, depth, visibility_full
 # and depth_full, lighting, scattering (and the scattering_rays they
-# integrate), lane_gather and stamp
+# integrate), sky, lane_gather and stamp
 LAUNCHES: collections.Counter = collections.Counter()
 _capturing = threading.local()
 

@@ -434,9 +434,9 @@ def evaluated_slots(mask: torch.Tensor | None) -> int | None:
     return None if mask is None else bin(int(mask) & (1 << MAX_SLOTS) - 1).count("1")
 
 
-def _pixels(plane: torch.Tensor, shape, what: str) -> torch.Tensor:
+def pixel_plane(plane: torch.Tensor, shape, what: str) -> torch.Tensor:
     """A contiguous f32 tensor of ``shape`` that starts on a 16-byte
-    boundary (the kernel reads a G-buffer texel as one float4)."""
+    boundary (the kernels read a G-buffer texel as one float4)."""
     if plane.dtype != F32 or tuple(plane.shape) != tuple(shape):
         raise ValueError(f"{what} must be a {tuple(shape)} float32 tensor, got {tuple(plane.shape)} {plane.dtype}")
     plane = plane.contiguous()
@@ -455,9 +455,9 @@ def _launch_kernel(gbuffer, camera, directional, spots, shadow_maps, shadowless_
         raise ValueError(f"the lighting kernel takes at most {MAX_SLOTS} light slots, got {n_dir + n_spot}")
     if shadow_maps.dtype != F32 or tuple(shadow_maps.shape) != (n_dir + n_spot, size, size):
         raise ValueError(f"shadow maps must be ({n_dir + n_spot}, dim, dim) float32, got {tuple(shadow_maps.shape)}")
-    planes = [_pixels(p, (rows, width, 4), f"G-buffer plane {name}") for name, p in zip(GBuffer._fields, gbuffer)]
+    planes = [pixel_plane(p, (rows, width, 4), f"G-buffer plane {name}") for name, p in zip(GBuffer._fields, gbuffer)]
     if sun_shadow is not None:
-        sun_shadow = _pixels(sun_shadow, (rows, width), "sun_shadow")
+        sun_shadow = pixel_plane(sun_shadow, (rows, width), "sun_shadow")
     if any(m.dtype != torch.bool for m in activity[:3]):
         raise ValueError("the light masks must be bool")
     tensors = [*planes, camera.position, shadow_maps, *activity[:3]] + ([sun_shadow] if sun_shadow is not None else [])

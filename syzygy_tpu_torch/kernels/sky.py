@@ -17,6 +17,15 @@ Port of ``syzygy_tpu/kernels/sky.py``, both formulations of
   integrals (and the per-pixel rays and materials they need) ahead of the
   pass, which takes them as ``exact``; the frame enqueues them as a layer
   of their own (``renderer/layers.py``: ``aerial_exact``).
+
+The aerial-LUT formulation takes one of two forms by its inputs' device:
+on CUDA tensors :func:`sky_camera_pass` launches ``csrc/sky.cu``, one
+thread per pixel, bitwise :func:`sky_camera_pass_lut_plain`, its frame
+constants packed by :func:`sky_table`; on the CPU it runs
+:func:`sky_camera_pass_lut_plain`. On the card, inputs that need a
+gradient get the plain version's. ``kernels.build.LAUNCHES`` counts the
+kernel's launches (``sky``). The quirk-exact formulation is tensor
+operations on every device.
 """
 
 from __future__ import annotations
@@ -26,7 +35,9 @@ from typing import NamedTuple
 import torch
 
 from syzygy_tpu_torch.device import constant
+from syzygy_tpu_torch.kernels import build
 from syzygy_tpu_torch.kernels.atmosphere import (
+    LUTQ8,
     METERS_PER_MM,
     PI,
     luminance_scattering_integral,
@@ -40,6 +51,8 @@ from syzygy_tpu_torch.kernels.atmosphere import (
     sample_transmittance_segment,
 )
 from syzygy_tpu_torch.kernels.lighting import (
+    PCF_WINDOW_MAX_DIM,
+    _TO_TEX_COORD,
     PBRTexel,
     _dot1,
     _normalize,
@@ -47,10 +60,13 @@ from syzygy_tpu_torch.kernels.lighting import (
     convert_pbr,
     diffuse_brdf,
     directional_pcf,
+    pixel_plane,
+    q8_tables,
     specular_brdf,
 )
+from syzygy_tpu_torch.kernels.plain_gradient import dispatch
 from syzygy_tpu_torch.kernels.resolve import GBuffer
-from syzygy_tpu_torch.math.geometry import dot3_fma, fma32, matvec, sqrt_rn, vec_norm
+from syzygy_tpu_torch.math.geometry import dot3_fma, fma32, matmul4, matvec, sqrt_rn, vec_norm
 from syzygy_tpu_torch.scene.atmosphere import AtmospherePacked
 from syzygy_tpu_torch.scene.camera import CameraPacked
 from syzygy_tpu_torch.scene.lights import DirectionalLight
@@ -88,9 +104,7 @@ def _skyview_uv(atmo: AtmospherePacked, position, direction):
     v_below = safe_sqrt(frac_below) * 0.5 + 0.5
     v = torch.where(above, v_above, v_below)
 
-    sun = atmo.incident_direction_sun
-    light_proj = -torch.stack([sun[0], sun[2]])
-    light_proj = light_proj / torch.clamp(vec_norm(light_proj), min=1e-12)
+    light_proj = _light_proj(atmo)
     view_proj = torch.stack([direction[..., 0], direction[..., 2]], dim=-1)
     view_proj = view_proj / torch.clamp(
         vec_norm(view_proj, dim=-1, keepdim=True), min=1e-12
@@ -101,6 +115,13 @@ def _skyview_uv(atmo: AtmospherePacked, position, direction):
         + 0.5
     )
     return u, v
+
+
+def _light_proj(atmo: AtmospherePacked):
+    """The sun's azimuth in the sky-view LUT: (-sun.x, -sun.z), normalized."""
+    sun = atmo.incident_direction_sun
+    light_proj = -torch.stack([sun[0], sun[2]])
+    return light_proj / torch.clamp(vec_norm(light_proj), min=1e-12)
 
 
 def sample_skyview(atmo: AtmospherePacked, skyview_lut, position, direction):
@@ -414,6 +435,14 @@ def sample_aerial_lut(aerial: AerialLUT, uv, dist_mm, t_max_mm: float):
     return out[..., 0:3], out[..., 3:6], out[..., 6:9]
 
 
+def _sky_position(camera: CameraPacked, atmo: AtmospherePacked):
+    """The camera's position, engine (+y down, meters) -> sky space (+y up,
+    Mm) (``camera.comp:318-322``)."""
+    up_r = torch.stack([torch.zeros_like(atmo.planet_radius_mm), atmo.planet_radius_mm,
+                        torch.zeros_like(atmo.planet_radius_mm)])
+    return camera.position[:3] / METERS_PER_MM * _flip(up_r.device) + up_r
+
+
 def camera_rays(camera: CameraPacked, atmo: AtmospherePacked, h: int, w: int,
                 draw_extent: tuple[int, int], row_origin: int = 0):
     """The pass's per-pixel view rays in sky space (+y up, Mm) for rows
@@ -423,11 +452,7 @@ def camera_rays(camera: CameraPacked, atmo: AtmospherePacked, h: int, w: int,
     dev = camera.position.device
     draw_w, draw_h = draw_extent
     flip = _flip(dev)
-    up_r = torch.stack([torch.zeros_like(atmo.planet_radius_mm), atmo.planet_radius_mm,
-                        torch.zeros_like(atmo.planet_radius_mm)])
-
-    # engine (+y down, meters) -> sky space (+y up, Mm) (camera.comp:318-322)
-    position = camera.position[:3] / METERS_PER_MM * flip + up_r
+    position = _sky_position(camera, atmo)
 
     # per-pixel view ray (camera.comp:324-328). The reference's compiled
     # ``i / extent - 0.5`` is ``fma(i, 1 / extent, -0.5)`` (division by a
@@ -597,6 +622,131 @@ def _transfers_exact(atmo, transmittance_lut, skyview_lut, exact: ExactAerial, s
     return env_transfer, geo_transfer
 
 
+def _composite(is_env, env_transfer, geo_transfer, scene_color, atmo):
+    """The pass's tonemapped colour (``camera.comp:389-395``): the branch's
+    transfer times the sun's spectrum, times 10, plus the lit colour of
+    geometry pixels, to the power 1.2."""
+    env3 = is_env[..., None]
+    transfer = torch.where(env3, env_transfer, geo_transfer)
+    surface_luminance = torch.where(env3, 0.0, scene_color)
+    luminance = transfer * atmo.sun_intensity_spectrum
+    return torch.pow(torch.clamp(luminance * 10.0 + surface_luminance, min=0.0), 1.2)
+
+
+def sky_camera_pass_lut_plain(
+    scene_color, scene_depth, gbuffer: GBuffer, camera: CameraPacked, atmo: AtmospherePacked, transmittance_lut,
+    skyview_lut, sun_light: DirectionalLight, sun_shadow_map, aerial: AerialLUT, tseg_rows, sun_shadow,
+    draw_extent: tuple[int, int], aerial_t_max: float, metallic_reflection: bool, pcf_f16: bool, pcf_q8: bool,
+    row_origin: int,
+):
+    """The aerial-LUT formulation of :func:`sky_camera_pass` in tensor
+    operations over the whole block."""
+    pixels = sky_pixels(scene_depth, gbuffer, camera, atmo, draw_extent, row_origin)
+    if sun_shadow is None:
+        sun_shadow = directional_pcf(sun_light, pixels.material, sun_shadow_map, f16=pcf_f16, q8=pcf_q8)
+    env_transfer, geo_transfer = _transfers_aerial(
+        atmo, transmittance_lut, skyview_lut, pixels.pos_grid, pixels.direction, pixels.sky_material,
+        pixels.is_env, pixels.dist_surface, sun_shadow, pixels.xs, pixels.ys, aerial, aerial_t_max,
+        tseg_rows, metallic_reflection,
+    )
+    return _composite(pixels.is_env, env_transfer, geo_transfer, scene_color, atmo)
+
+
+SKY_TABLE = 69  # f32 values of :func:`sky_table` (csrc/sky.cu)
+SKY_F32, SKY_F16, SKY_Q8 = 0, 1, 2  # the kernel's sky-view LUT formats
+
+
+def sky_table(camera: CameraPacked, atmo: AtmospherePacked, sun_light: DirectionalLight,
+              aerial: AerialLUT) -> torch.Tensor:
+    """What the kernel reads of the frame, (SKY_TABLE,) f32 on the
+    camera's device: the camera's ``inverse_projection`` and ``rotation``
+    (16 each, row-major) and its position in sky space, the planet's and
+    the atmosphere's radii, ``incident_direction_sun``, the sky-view's
+    light projection, ``_normalize(-sun)``, ``vec_norm(-sun)``,
+    ``sun_angular_radius``, ``sun_intensity_spectrum``, the sun's shadow
+    frame ``matmul4(_TO_TEX_COORD, matmul4(projection, view))`` (16,
+    row-major) and the aerial LUT's ``t_sun0``. Each value is bitwise the
+    one the plain version computes, by its own tensor operation."""
+    dev = camera.position.device
+    sun = atmo.incident_direction_sun
+    frame = matmul4(constant(_TO_TEX_COORD, F32, dev), matmul4(sun_light.projection, sun_light.view))
+    parts = [
+        camera.inverse_projection.reshape(16), camera.rotation.reshape(16), _sky_position(camera, atmo),
+        atmo.planet_radius_mm.reshape(1), atmo.atmosphere_radius_mm.reshape(1), sun, _light_proj(atmo),
+        _normalize(-sun), vec_norm(-sun).reshape(1), atmo.sun_angular_radius.reshape(1),
+        atmo.sun_intensity_spectrum.reshape(3), frame.reshape(16), aerial.t_sun0.reshape(3),
+    ]
+    table = torch.cat(parts)
+    if table.dtype != F32 or table.shape != (SKY_TABLE,):
+        raise ValueError(f"the sky table is {table.shape[0]} {table.dtype} values, the kernel reads {SKY_TABLE} f32")
+    return table
+
+
+def _skyview_format(lut):
+    """The sky-view LUT as the kernel reads it: (format, data, q8 scales,
+    height, width)."""
+    if isinstance(lut, LUTQ8):
+        h, w = lut.scale.shape
+        if lut.q.dtype != torch.uint8 or tuple(lut.q.shape) != (h, w, 12) or lut.scale.dtype != F32:
+            raise ValueError(f"a q8 sky-view LUT must be ({h}, {w}, 12) uint8 codes and f32 scales")
+        return SKY_Q8, lut.q.contiguous(), lut.scale.contiguous(), h, w
+    formats = {F32: SKY_F32, torch.float16: SKY_F16}
+    if lut.dtype not in formats or lut.dim() != 3 or lut.shape[-1] != 3:
+        raise ValueError(f"the sky-view LUT must be (H, W, 3) f32 or f16, got {tuple(lut.shape)} {lut.dtype}")
+    return formats[lut.dtype], lut.contiguous(), None, lut.shape[0], lut.shape[1]
+
+
+def _launch_kernel(
+    scene_color, scene_depth, gbuffer, camera, atmo, transmittance_lut, skyview_lut, sun_light, sun_shadow_map,
+    aerial, tseg_rows, sun_shadow, draw_extent, aerial_t_max, metallic_reflection, f16, q8, row_origin,
+):
+    """Launch ``csrc/sky.cu`` over the block's (rows, W) pixels, the sun's
+    taps rounded to f16 (``f16``) or decoded from q8 segments (``q8``)."""
+    rows, width = scene_depth.shape
+    dev = scene_depth.device
+    planes = [pixel_plane(p, (rows, width, 4), f"G-buffer plane {name}") for name, p in zip(GBuffer._fields, gbuffer)]
+    depth = pixel_plane(scene_depth, (rows, width), "scene_depth")
+    color = pixel_plane(scene_color, (rows, width, 3), "scene_color")
+    if sun_shadow is not None:
+        sun_shadow = pixel_plane(sun_shadow, (rows, width), "sun_shadow")
+    if transmittance_lut.dtype != F32 or transmittance_lut.dim() != 3 or transmittance_lut.shape[-1] != 3:
+        raise ValueError(f"the transmittance LUT must be (H, W, 3) f32, got {tuple(transmittance_lut.shape)}")
+    volume = aerial.volume
+    if volume.dtype != F32 or volume.dim() != 4 or volume.shape[-1] != 9:
+        raise ValueError(f"the aerial LUT must be (n_y, n_x, n_s, 9) f32, got {tuple(volume.shape)} {volume.dtype}")
+    if tseg_rows is not None and (tseg_rows.dtype != F32 or tseg_rows.dim() != 2 or tseg_rows.shape[1] != 6):
+        raise ValueError(f"the t_seg rows must be (h, 6) f32, got {tuple(tseg_rows.shape)}")
+    size = sun_shadow_map.shape[-1]
+    if sun_shadow_map.dtype != F32 or tuple(sun_shadow_map.shape) != (size, size):
+        raise ValueError(f"the sun's shadow map must be (dim, dim) f32, got {tuple(sun_shadow_map.shape)}")
+    fmt, sky, sky_scale, sky_h, sky_w = _skyview_format(skyview_lut)
+    t_lut, volume = transmittance_lut.contiguous(), volume.contiguous()
+    tseg = None if tseg_rows is None else tseg_rows.contiguous()
+    sun_map = sun_shadow_map.contiguous()
+    table = sky_table(camera, atmo, sun_light, aerial)
+    tensors = [*planes, depth, color, t_lut, sky, volume, sun_map, table] + [
+        t for t in (sun_shadow, sky_scale, tseg) if t is not None
+    ]
+    if any(t.device != dev for t in tensors):
+        raise ValueError("the sky pass's inputs must be on one device")
+    codes, lo16, step16, n_w = q8_tables(sun_map[None]) if q8 else (None, None, None, 0)
+    out = torch.empty((rows, width, 3), dtype=F32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    draw_w, draw_h = draw_extent
+    build.launch(
+        "szg_sky", dev,
+        *[p.data_ptr() for p in planes], depth.data_ptr(), color.data_ptr(), ptr(sun_shadow), table.data_ptr(),
+        t_lut.data_ptr(), t_lut.shape[0], t_lut.shape[1], sky.data_ptr(), ptr(sky_scale), sky_h, sky_w, fmt,
+        ptr(tseg), 0 if tseg is None else tseg.shape[0], volume.data_ptr(), *volume.shape[:3], float(aerial_t_max),
+        sun_map.data_ptr(), size, int(f16), ptr(codes), ptr(lo16), ptr(step16), n_w,
+        int(metallic_reflection), rows, width, row_origin, draw_w, draw_h, out.data_ptr(), counts={"sky": 1},
+    )
+    return out
+
+
 def sky_camera_pass(
     scene_color,  # (H, W, 3) lit geometry
     scene_depth,  # (H, W)
@@ -624,34 +774,37 @@ def sky_camera_pass(
     (``sky.py:598-822``). The ``pcf_*`` flags go to the sun's
     :func:`sample_shadow_map`; a given ``sun_shadow`` (the same PCF,
     evaluated once for both passes: ``RenderConfig.share_sun_pcf``)
-    replaces it. Without ``aerial``, ``exact`` gives the per-pixel
-    integrals and the pixels they were taken over
+    replaces it. With ``aerial``, CUDA tensors launch ``csrc/sky.cu``
+    once (with the plain version's gradient where autograd needs the
+    inputs, :func:`kernels.plain_gradient.dispatch`) and CPU tensors take
+    :func:`sky_camera_pass_lut_plain`. Without ``aerial``, ``exact``
+    gives the per-pixel integrals and the pixels they were taken over
     (:func:`aerial_integrals_exact` of the same block and settings);
     without it the pass computes them itself."""
     if aerial is not None:
-        pixels = sky_pixels(scene_depth, gbuffer, camera, atmo, draw_extent, row_origin)
-    else:
-        if exact is None:
-            exact = aerial_integrals_exact(
-                scene_depth, gbuffer, camera, atmo, transmittance_lut, draw_extent,
-                metallic_reflection, row_origin, fast, fast_reflection,
-            )
-        pixels = exact.pixels
-
-    if sun_shadow is None:
-        sun_shadow = directional_pcf(sun_light, pixels.material, sun_shadow_map, f16=pcf_f16, q8=pcf_q8)
-
-    if aerial is not None:
-        env_transfer, geo_transfer = _transfers_aerial(
-            atmo, transmittance_lut, skyview_lut, pixels.pos_grid, pixels.direction, pixels.sky_material,
-            pixels.is_env, pixels.dist_surface, sun_shadow, pixels.xs, pixels.ys, aerial, aerial_t_max,
-            tseg_rows, metallic_reflection,
+        args = (
+            scene_color, scene_depth, gbuffer, camera, atmo, transmittance_lut, skyview_lut, sun_light,
+            sun_shadow_map, aerial, tseg_rows, sun_shadow,
         )
-    else:
-        env_transfer, geo_transfer = _transfers_exact(atmo, transmittance_lut, skyview_lut, exact, sun_shadow)
+        small = sun_shadow_map.shape[-1] <= PCF_WINDOW_MAX_DIM
+        taps = (pcf_f16 and small, pcf_q8 and small and sun_shadow is None)  # a given sun_shadow takes none
 
-    env3 = pixels.is_env[..., None]
-    transfer = torch.where(env3, env_transfer, geo_transfer)
-    surface_luminance = torch.where(env3, 0.0, scene_color)
-    luminance = transfer * atmo.sun_intensity_spectrum
-    return torch.pow(torch.clamp(luminance * 10.0 + surface_luminance, min=0.0), 1.2)
+        def kernel():
+            return _launch_kernel(*args, draw_extent, aerial_t_max, metallic_reflection, *taps, row_origin)
+
+        def plain(*a):
+            return sky_camera_pass_lut_plain(
+                *a, draw_extent, aerial_t_max, metallic_reflection, pcf_f16, pcf_q8, row_origin,
+            )
+
+        return dispatch(scene_depth.device, kernel, plain, args)
+
+    if exact is None:
+        exact = aerial_integrals_exact(
+            scene_depth, gbuffer, camera, atmo, transmittance_lut, draw_extent,
+            metallic_reflection, row_origin, fast, fast_reflection,
+        )
+    if sun_shadow is None:
+        sun_shadow = directional_pcf(sun_light, exact.pixels.material, sun_shadow_map, f16=pcf_f16, q8=pcf_q8)
+    env_transfer, geo_transfer = _transfers_exact(atmo, transmittance_lut, skyview_lut, exact, sun_shadow)
+    return _composite(exact.pixels.is_env, env_transfer, geo_transfer, scene_color, atmo)

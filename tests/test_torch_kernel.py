@@ -139,7 +139,7 @@ for a in "$@"; do
   prev="$a"
   case "$a" in
     *gather.cu) src=gather ;; *raster.cu) src=raster ;; *stamp.cu) src=stamp ;; *lighting.cu) src=lighting ;;
-    *scattering.cu) src=scattering ;;
+    *scattering.cu) src=scattering ;; *sky.cu) src=sky ;;
   esac
 done
 echo "$src" >> "$CALLS"
@@ -178,7 +178,9 @@ def test_build_compiles_each_source_once(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="csrc/gather.cu"):
         build.build()
     built = sorted(p.name.split("_")[1] for p in (tmp_path / "build2").iterdir())
-    assert built == ["lighting", "lighting", "raster", "raster", "scattering", "scattering", "stamp", "stamp"]
+    assert built == [
+        "lighting", "lighting", "raster", "raster", "scattering", "scattering", "sky", "sky", "stamp", "stamp",
+    ]
 
 
 def test_load_binds_entry_points_once(monkeypatch):
@@ -190,7 +192,7 @@ def test_load_binds_entry_points_once(monkeypatch):
         def __init__(self, path):
             self.path = path
             for entry in ("szg_raster", "szg_lane_gather", "szg_stamp", "szg_capture_nodes", "szg_lighting",
-                          "szg_scattering"):
+                          "szg_scattering", "szg_sky"):
                 setattr(self, entry, type("Fn", (), {})())
 
     monkeypatch.setattr(build, "build", lambda name: {name: f"/lib/{name}.so"})
@@ -213,6 +215,8 @@ def test_load_binds_entry_points_once(monkeypatch):
     lighting_args, _ = build.ENTRY_POINTS["lighting"]["szg_lighting"]
     assert lighting_args.count(ctypes.c_void_p) == 18 and lighting_args.count(ctypes.c_longlong) == 1
     assert len(lighting_args) == 26
+    sky_args, _ = build.ENTRY_POINTS["sky"]["szg_sky"]
+    assert sky_args.count(ctypes.c_void_p) == 20 and sky_args.count(ctypes.c_double) == 1 and len(sky_args) == 40
     scattering_args, _ = build.ENTRY_POINTS["scattering"]["szg_scattering"]
     assert scattering_args.count(ctypes.c_void_p) == 8 and scattering_args.count(ctypes.c_longlong) == 1
     assert len(scattering_args) == 14
