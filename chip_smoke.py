@@ -32,7 +32,11 @@ no result line):
    the flagship camera's rows [512, 1088) as a block at a non-zero origin,
    visibility and depth-only; the layer stamp on a ring of the main path's
    shape (4096 x 10) across its wrap, its sequence column and counter
-   exactly ``stamp_plain``'s on a copy, its times in mark order; the
+   exactly ``stamp_plain``'s on a copy, its times in mark order, and a
+   main path's parts (ten shadow slots' setup, binning and raster, the
+   camera's four) captured in a graph of timed sleeps and replayed: each
+   part's sum its sleeps', the parts' sum within their layers' stamps, the
+   tile-list counters exact and the cells written a host trace's; the
    deferred lighting (``csrc/lighting.cu``) against
    ``deferred_lighting_plain`` at the cells' settings (1920x1088, 8192^2
    maps) on the default scene with its sun animated and the chess
@@ -125,6 +129,7 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import torch
 
@@ -1327,7 +1332,118 @@ def phase_compare_stamp(device):
         st.stamp_plain(plain_ring, plain_seq, 1, False)
     report["plain_ms"] = (time.perf_counter() - t0) * 1e3 / REPS
     report["bound_ms"], report["bound_by"] = bound(3 * 8, 0)  # the counter read, a time and a sequence number
+    report["part"] = compare_part_stamp(device)
     print("compare " + json.dumps(report), flush=True)
+    return report
+
+
+PART_SLEEPS = {  # SM cycles a part sleeps in compare_part_stamp (~30-75 us each)
+    "shadow.setup": 120_000, "shadow.bin": 60_000, "shadow.raster": 90_000, "gbuffer.setup": 100_000,
+    "gbuffer.bin": 70_000, "gbuffer.raster": 80_000, "gbuffer.resolve": 150_000,
+}
+STAMP_MS = 0.005  # what a stamp may add to an interval: its launch in a graph and its run (~1.4 us)
+
+
+def compare_part_stamp(device):
+    """A main path's parts as ``renderer/layers.py`` stamps them: a
+    :class:`FrameTrace` of ten shadow slots records, inside a CUDA graph,
+    ``state``, then ten times (``shadow.setup``, ``.bin``, ``.raster``)
+    in ``shadow`` and the camera's four parts in ``gbuffer``, each part one
+    ``torch.cuda._sleep`` of its own length (:data:`PART_SLEEPS`), each
+    binning tallying counters of its own. Two replays. Each part's sum must
+    be its sleeps' time (CUDA events, the sleeps alone) within a stamp's
+    cost an interval and 2%; the parts' sum at most ``shadow`` +
+    ``gbuffer`` as their layer stamps read them and at least that less
+    four stamps' cost (the gaps at each layer's two ends); the counters
+    exactly their sums; and a CPU trace of the same sequence must write the
+    same cells and record the same intervals. The part stamp with its
+    counters timed alone."""
+    from syzygy_tpu_torch.kernels import stamp as st
+    from syzygy_tpu_torch.renderer.layers import MARKS, FrameTrace, layer, part, recording, tally
+
+    slots = 10
+    flags = [i % 3 == 0 for i in range(slots + 1)]
+    pairs = [1000 * i + 7 for i in range(slots + 1)]
+
+    def tile_lists(where):  # made before the capture: a capture copies nothing from the host
+        return [SimpleNamespace(overflow=torch.tensor(f, device=where),
+                                offsets=torch.tensor([0, n], dtype=torch.int32, device=where))
+                for f, n in zip(flags, pairs)]
+
+    def sequence(lists, on_device):
+        def run(name):
+            with part(name):
+                if on_device:
+                    torch.cuda._sleep(PART_SLEEPS[name])
+                if name.endswith(".bin"):
+                    tally(lists.pop(0))
+
+        with layer("state"):
+            pass
+        with layer("shadow"):
+            for _ in range(slots):
+                for name in ("shadow.setup", "shadow.bin", "shadow.raster"):
+                    run(name)
+        with layer("gbuffer"):
+            for name in ("gbuffer.setup", "gbuffer.bin", "gbuffer.raster", "gbuffer.resolve"):
+                run(name)
+
+    trace = FrameTrace(device, slots)
+    lists = tile_lists(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph), recording(trace):
+        sequence(lists, True)
+    for _ in range(2):
+        graph.replay()
+        trace.replayed((0.0, 0.0), (0.0, 0.0))
+    torch.cuda.synchronize()
+    plain = FrameTrace("cpu", slots)
+    with recording(plain):
+        sequence(tile_lists(torch.device("cpu")), False)
+    plain.replayed((0.0, 0.0), (0.0, 0.0))
+
+    check(trace.spans == plain.spans and trace.counter_columns == plain.counter_columns,
+          "the captured parts record other intervals or counter columns than the host's")
+    check(trace.nodes["part_stamps"] == 3 * slots + 1 + 5, f"{trace.nodes['part_stamps']} part stamps, not 36")
+    ring = trace.ring.cpu()
+    check(torch.equal(ring[:2] != -1, plain.ring[:1].expand(2, -1) != -1) and bool((ring[2:] == -1).all()),
+          "the captured stamps wrote other cells than the host's")
+    counter_cells = [c for _, c in trace.counter_columns]
+    check(all(torch.equal(ring[k, counter_cells], plain.ring[0, counter_cells]) for k in (0, 1)),
+          f"counter cells {ring[0, counter_cells].tolist()}, the host's {plain.ring[0, counter_cells].tolist()}")
+    sleep_ms = {name: time_ms(lambda c=c: torch.cuda._sleep(c)) for name, c in PART_SLEEPS.items()}
+    counts = {name: sum(1 for n, _, _ in trace.spans if n == name) for name in PART_SLEEPS}
+    replays = trace.read()
+    check([r.seq for r in replays] == [0, 1], f"replays read {[r.seq for r in replays]}")
+    for r in replays:
+        check(r.counters == {"raster_overflows": sum(flags), "raster_pairs": sum(pairs)},
+              f"replay {r.seq}: counters {r.counters}")
+        for name, ms in r.parts_ms.items():
+            want = counts[name] * sleep_ms[name]
+            check(abs(ms - want) <= counts[name] * STAMP_MS + 0.02 * want,
+                  f"replay {r.seq}: part {name} {ms:.4f} ms, its {counts[name]} sleeps {want:.4f} ms")
+        layers_ms = r.layer_ms["shadow"] + r.layer_ms["gbuffer"]
+        parts_ms = sum(r.parts_ms.values())
+        check(layers_ms - 4 * STAMP_MS <= parts_ms <= layers_ms,
+              f"replay {r.seq}: parts {parts_ms:.4f} ms against shadow + gbuffer {layers_ms:.4f} ms")
+    ov = torch.tensor(True, device=device)
+    n = torch.tensor([5], dtype=torch.int32, device=device)
+    alone = torch.full((4, MARKS + 4), -1, dtype=torch.int64, device=device)
+    seq = torch.zeros((), dtype=torch.int64, device=device)
+    report = {"name": "part", "stamps_a_frame": trace.nodes["part_stamps"], "max_abs_err": 0,
+              "parts_ms": replays[-1].parts_ms, "sleeps_ms": sleep_ms,
+              "layers_ms": {k: replays[-1].layer_ms[k] for k in ("shadow", "gbuffer")},
+              "counters": replays[-1].counters}
+    report["ms"] = time_ms(lambda: st.stamp(alone, seq, MARKS, False, ov, n, kind="part"))
+    report["device_ms"] = device_ms(lambda: st.stamp(alone, seq, MARKS, False, ov, n, kind="part"))
+    plain_ring, plain_seq = alone.cpu(), seq.cpu()
+    ov_cpu, n_cpu = ov.cpu(), n.cpu()
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        st.stamp_plain(plain_ring, plain_seq, MARKS, False, ov_cpu, n_cpu)
+    report["plain_ms"] = (time.perf_counter() - t0) * 1e3 / REPS
+    # the sequence read, the flag and the pairs read, a time and two counters written
+    report["bound_ms"], report["bound_by"] = bound(8 + 1 + 4 + 3 * 8, 0)
     return report
 
 
@@ -2029,21 +2145,28 @@ def main() -> int:
         print(f"phase {name}: {seconds[name]:.2f} s", flush=True)
         return out
 
-    stamp_launches, lighting_launches, scattering_launches, sky_launches = {}, {}, {}, {}
+    stamp_launches, part_launches, lighting_launches = {}, {}, {}
+    scattering_launches, sky_launches = {}, {}
 
     def main_path(name, fn, *args, **kwargs):
-        """``timed``, with the stamp, lighting, scattering and sky launches
-        of the frames it runs (a replay launches those its graph holds)."""
+        """``timed``, with the stamp, part stamp, lighting, scattering and
+        sky launches of the frames it runs (a replay launches those its
+        graph holds). A path that replays a stamped frame must replay its
+        part stamps too."""
         before = build.LAUNCHES.copy()
         out = timed(name, fn, *args, **kwargs)
         made = build.LAUNCHES - before
         stamp_launches[name] = made["stamp"]
+        part_launches[name] = made["part"]
         lighting_launches[name] = made["lighting"]
         scattering_launches[name] = made["scattering"]
         sky_launches[name] = made["sky"]
-        print(f"phase {name}: {stamp_launches[name]} stamp launches, {lighting_launches[name]} lighting launches, "
+        print(f"phase {name}: {stamp_launches[name]} stamp launches, {part_launches[name]} part stamp launches, "
+              f"{lighting_launches[name]} lighting launches, "
               f"{scattering_launches[name]} scattering launches over {made['scattering_rays']} rays, "
               f"{sky_launches[name]} sky launches", flush=True)
+        check(part_launches[name] > 0 or stamp_launches[name] == 0,
+              f"phase {name}: {stamp_launches[name]} stamp launches but no part stamp")
         return out
 
     try:
@@ -2135,6 +2258,15 @@ def main() -> int:
             "max_abs_err": stamp_report["max_abs_err"], "ms": stamp_report["ms"],
             "plain_ms": stamp_report["plain_ms"], "bound_ms": stamp_report["bound_ms"],
             "bound_by": stamp_report["bound_by"], "library_ms": None,
+        },
+        {
+            "name": "part", "route": "cuda", "source": "syzygy_tpu_torch/csrc/stamp.cu",
+            "replaces": None, "launches": sum(part_launches.values()),
+            "launches_by_path": part_launches,
+            "max_abs_err": stamp_report["part"]["max_abs_err"], "ms": stamp_report["part"]["ms"],
+            "device_ms": stamp_report["part"]["device_ms"], "plain_ms": stamp_report["part"]["plain_ms"],
+            "bound_ms": stamp_report["part"]["bound_ms"], "bound_by": stamp_report["part"]["bound_by"],
+            "library_ms": None,
         },
         {
             "name": "lighting", "route": "cuda", "source": "syzygy_tpu_torch/csrc/lighting.cu",

@@ -1,5 +1,5 @@
-// Layer stamps of a replayed frame (sm_90a), and the node count of the
-// CUDA graph under capture.
+// Layer and part stamps of a replayed frame (sm_90a), and the node count
+// of the CUDA graph under capture.
 //
 // Replaces no TPU kernel: it is the port's own instrumentation
 // (renderer/layers.py). While a frame is captured as a CUDA graph, one
@@ -16,7 +16,13 @@
 // holds the sequence it expects: a slot written by an older replay, or
 // one whose replay has not finished, holds another value.
 //
-// Bound: the launch. A stamp moves 8-24 bytes; it starts when the kernel
+// The boundaries of the parts inside a layer (renderer/layers.py) are
+// stamps too, into columns after the layer marks; the host sums a part's
+// intervals. A stamp given a raster's tile-list counters (its overflow
+// flag and pair count) also copies them into the two columns after its
+// mark, for the host to add up.
+//
+// Bound: the launch. A stamp moves 8-37 bytes; it starts when the kernel
 // before it on the stream has ended, so a layer's time is the difference
 // of its two stamps and the layers of a replay sum to its device time.
 
@@ -26,13 +32,18 @@
 
 namespace {
 
-__global__ void stamp_kernel(long long* ring, long long* seq, int rows, int stride, int mark, int last) {
+__global__ void stamp_kernel(long long* ring, long long* seq, int rows, int stride, int mark, int last,
+                             const bool* overflow, const int* pairs) {
   long long now;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
   const long long n = *seq;
   long long* slot = ring + (n % rows) * stride;
   if (mark == 0) slot[stride - 1] = -1;  // the slot is being written
   slot[mark] = now;
+  if (overflow != nullptr) {
+    slot[mark + 1] = *overflow ? 1 : 0;
+    slot[mark + 2] = *pairs;
+  }
   if (last) {
     __threadfence();  // the times before the sequence number
     slot[stride - 1] = n;
@@ -45,13 +56,17 @@ __global__ void stamp_kernel(long long* ring, long long* seq, int rows, int stri
 // Plain C entry points (bound with ctypes). Each returns a CUDA error, 0
 // when the call succeeded.
 
-// Launches one stamp on `stream` of `device`; allocates nothing.
+// Launches one stamp on `stream` of `device`; allocates nothing. With
+// `overflow` (and `pairs`) not null, the stamp copies them too.
 extern "C" int szg_stamp(long long* ring, long long* seq, int rows, int stride, int mark, int last,
-                         int device, void* stream) {
-  if (rows <= 0 || stride < 2 || mark < 0 || mark >= stride - 1) return (int)cudaErrorInvalidValue;
+                         const bool* overflow, const int* pairs, int device, void* stream) {
+  const int columns = overflow != nullptr ? 3 : 1;  // the time, and the counters after it
+  if (rows <= 0 || stride < 2 || mark < 0 || mark + columns > stride - 1) return (int)cudaErrorInvalidValue;
+  if ((overflow != nullptr) != (pairs != nullptr)) return (int)cudaErrorInvalidValue;
   if (!szg::valid_device(device)) return (int)cudaErrorInvalidDevice;
   szg::DeviceScope scope(device);
-  stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(ring, seq, rows, stride, mark, last);
+  stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(ring, seq, rows, stride, mark, last, overflow,
+                                                               pairs);
   return (int)cudaGetLastError();
 }
 

@@ -77,8 +77,8 @@ ENTRY_POINTS = {
     },
     # table, table_n, idx, out, n, device, stream
     "gather": {"szg_lane_gather": ([_P, _LL, _P, _P, _LL, _I, _P], _I)},
-    # ring, seq, rows, stride, mark, last, device, stream | stream, nodes
-    "stamp": {"szg_stamp": ([_P, _P] + [_I] * 5 + [_P], _I), "szg_capture_nodes": ([_P, _P], _I)},
+    # ring, seq, rows, stride, mark, last, overflow, pairs, device, stream | stream, nodes
+    "stamp": {"szg_stamp": ([_P, _P] + [_I] * 4 + [_P, _P, _I, _P], _I), "szg_capture_nodes": ([_P, _P], _I)},
 }
 _COMMON = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
@@ -88,7 +88,8 @@ _SOURCE_OF = {entry: name for name, entries in ENTRY_POINTS.items() for entry in
 _loaded: dict[str, ctypes.CDLL] = {}
 # kernel launches by kind: the raster's visibility, depth, visibility_full
 # and depth_full, lighting, scattering (and the scattering_rays they
-# integrate), sky, lane_gather and stamp
+# integrate), sky, lane_gather, stamp and part (the stamps at a layer's
+# part boundaries)
 LAUNCHES: collections.Counter = collections.Counter()
 _capturing = threading.local()
 

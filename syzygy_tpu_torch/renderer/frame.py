@@ -25,8 +25,10 @@ config) after one eager frame; :func:`render_frame_eager` and
 every CPU frame.
 
 The frame runs as contiguous layers (``renderer/layers.py``), each
-a profiler range; a captured graph holds a stamp at every layer boundary,
-so each replay writes its layers' device times (:func:`captured_frames`).
+a profiler range, the rasters' setup, binning and raster and the
+G-buffer resolve parts inside theirs; a captured graph holds a stamp at
+every layer and part boundary, so each replay writes its layers' and
+parts' device times and its tile lists' counters (:func:`captured_frames`).
 
 The TPU-only structure of the reference (three jitted programs, the
 68-row ``lax.map`` sky chunks that dodge a TPU compiler crash, quad/joint
@@ -55,7 +57,7 @@ from syzygy_tpu_torch.kernels.atmosphere import (
 from syzygy_tpu_torch.kernels.debuglines import draw_lines
 from syzygy_tpu_torch.kernels import build, lighting
 from syzygy_tpu_torch.kernels.lighting import convert_pbr, deferred_lighting, directional_pcf, light_activity
-from syzygy_tpu_torch.kernels.raster import TILE_H, TILE_W, rasterize, setup_triangles
+from syzygy_tpu_torch.kernels.raster import TILE_H, TILE_W, bin_triangles, rasterize, setup_triangles
 from syzygy_tpu_torch.kernels.resolve import (
     resolve_gbuffer,
     transform_normals,
@@ -70,7 +72,7 @@ from syzygy_tpu_torch.kernels.sky import (
 )
 from syzygy_tpu_torch.kernels.transfer import oetf_pure_gamma, oetf_srgb
 from syzygy_tpu_torch.math.geometry import matmul4, matvec
-from syzygy_tpu_torch.renderer.layers import FrameTrace, layer, recording
+from syzygy_tpu_torch.renderer.layers import FrameTrace, layer, part, recording, tally
 from syzygy_tpu_torch.scene.lights import MAX_SPOT_LIGHTS
 from syzygy_tpu_torch.scene.pack import (
     FrameParams,
@@ -203,27 +205,47 @@ def _shadow_pass(geometry: GeometryStatic, world_h, state, config: RenderConfig,
         return maps
     tri_valid = geometry.tri_valid & geometry.tri_casts_shadow
     corners_world = world_h[geometry.triangles.long()]  # (T, 3, 4), gathered once
+    capacity = config.tile_list_capacity
 
-    def raster_one(i):
-        setup = setup_triangles(
-            None, geometry.triangles, tri_valid & active[i], dim, dim,
-            cull_keep_sign=-1,  # front-face culling (pipelines.cpp:654-663)
-            corner_clip=matvec(pv[i], corners_world),
-            depth_bias_constant=config.shadow_bias_constant,
-            depth_bias_slope=config.shadow_bias_slope,
-        )
-        return rasterize(setup, dim, dim, depth_only=True, capacity=config.tile_list_capacity).depth
+    def raster_into(target, i):
+        """Slot i's setup, binning and raster, its map copied to ``target``."""
+        with part("shadow.setup"):
+            setup = setup_triangles(
+                None, geometry.triangles, tri_valid & active[i], dim, dim,
+                cull_keep_sign=-1,  # front-face culling (pipelines.cpp:654-663)
+                corner_clip=matvec(pv[i], corners_world),
+                depth_bias_constant=config.shadow_bias_constant,
+                depth_bias_slope=config.shadow_bias_slope,
+            )
+        lists = _binned("shadow", setup, dim, dim, capacity)
+        with part("shadow.raster"):
+            depth = rasterize(setup, dim, dim, depth_only=True, lists=lists, capacity=capacity).depth
+            del lists  # freed before the copy, as when the raster binned inside itself
+            target.copy_(depth)
 
     if group is None or group.size == 1:
         for i in range(n):
-            maps[i] = raster_one(i)
+            raster_into(maps[i], i)
         return maps
     per = -(-n // group.size)
     local = torch.zeros((per, dim, dim), dtype=F32, device=world_h.device)
     for k, i in enumerate(range(group.index * per, min((group.index + 1) * per, n))):
-        local[k] = raster_one(i)
+        raster_into(local[k], i)
     maps[:n] = group.all_gather(local).reshape(-1, dim, dim)[:n]
     return maps
+
+
+def _binned(layer_name: str, setup, width: int, height: int, capacity: int):
+    """``setup``'s tile lists for a ``height x width`` target
+    (:func:`kernels.raster.bin_triangles`) as the part ``<layer>.bin``,
+    tallied into the frame's counters; None at capacity 0 (the raster
+    then iterates over every slot)."""
+    if not capacity:
+        return None
+    with part(f"{layer_name}.bin"):
+        lists = bin_triangles(setup.coeffs, height, width, capacity)
+        tally(lists)
+    return lists
 
 
 def _geometry(
@@ -258,15 +280,21 @@ def _geometry(
     setup_group = group if config.shard_triangle_setup else None
 
     with layer("gbuffer"):
-        setup = setup_triangles(
-            clip, geometry.triangles, geometry.tri_valid,
-            config.render_width, config.render_height,
-            cull_keep_sign=+1,  # back-face cull, CW front (deferred.cpp:503-713)
-            grid_width=config.padded_width, grid_height=local_rows, grid_origin=(row0, 0),
-            group=setup_group,
-        )
-        vis = rasterize(setup, config.padded_width, local_rows, origin=(row0, 0), capacity=config.tile_list_capacity)
-        gbuffer = resolve_gbuffer(vis, setup, geometry, world, world_normals, group=setup_group)
+        with part("gbuffer.setup"):
+            setup = setup_triangles(
+                clip, geometry.triangles, geometry.tri_valid,
+                config.render_width, config.render_height,
+                cull_keep_sign=+1,  # back-face cull, CW front (deferred.cpp:503-713)
+                grid_width=config.padded_width, grid_height=local_rows, grid_origin=(row0, 0),
+                group=setup_group,
+            )
+        capacity = config.tile_list_capacity
+        lists = _binned("gbuffer", setup, config.padded_width, local_rows, capacity)
+        with part("gbuffer.raster"):
+            vis = rasterize(setup, config.padded_width, local_rows, origin=(row0, 0), lists=lists, capacity=capacity)
+            del lists  # not held through the resolve
+        with part("gbuffer.resolve"):
+            gbuffer = resolve_gbuffer(vis, setup, geometry, world, world_normals, group=setup_group)
     return state, vis, gbuffer, shadow_maps, proj_view
 
 
@@ -497,7 +525,7 @@ class _FrameGraph:
         device = row.device
         stream = _capture_stream(device)
         current = torch.cuda.current_stream(device)
-        trace = FrameTrace(device)  # on the stream that replays, outside the pool
+        trace = FrameTrace(device, config.n_shadow_maps)  # on the stream that replays, outside the pool
         stream.wait_stream(current)
         with torch.no_grad(), torch.cuda.stream(stream):
             image = render_frame_eager(geometry, unflatten_frame_params(spec, row), config)
@@ -571,18 +599,21 @@ def captured_frames() -> list[dict]:
     its capture took, the bytes its capture added to the device's
     reserved memory (its pool), its ``launches``: the kernel launches of
     each replay by kind (``kernels.build.LAUNCHES``' kinds, the layer
-    stamps included), its ``layers`` in frame order, its ``nodes`` (each
-    layer's, ``stamps`` and ``total``), its ``replays`` so far, ``read``: a function that
+    stamps included), its ``layers`` in frame order, its ``parts`` and
+    ``counters`` (``layers.PARTS`` and ``layers.COUNTERS`` that it writes),
+    its ``nodes`` (each layer's, ``stamps``, ``part_stamps`` and ``total``),
+    its ``replays`` so far, ``read``: a function that
     returns the finished replays' :class:`layers.Replay` records (layer
-    device ms, host stage and replay ms), oldest first, once the frames
-    are done, and ``lighting_slots``: a function that returns the light
+    device ms, part device ms, counters, host stage and replay ms), oldest
+    first, once the frames are done, and ``lighting_slots``: a function that returns the light
     slots that the graph's lighting launch evaluated in its last replay
     (:func:`kernels.lighting.evaluated_slots`), None for a graph without
     one."""
     return [
         {
             "config": key[2], "capture_s": g.capture_s, "pool_bytes": g.pool_bytes, "launches": g.launches,
-            "layers": list(g.trace.layers), "nodes": g.trace.nodes, "replays": g.trace.replays,
+            "layers": list(g.trace.layers), "parts": list(g.trace.parts), "counters": list(g.trace.counters),
+            "nodes": g.trace.nodes, "replays": g.trace.replays,
             "read": g.trace.read,
             "lighting_slots": functools.partial(lighting.evaluated_slots, g.slot_mask),
         }

@@ -210,7 +210,7 @@ def test_load_binds_entry_points_once(monkeypatch):
     gather_args, _ = build.ENTRY_POINTS["gather"]["szg_lane_gather"]
     assert gather_args.count(ctypes.c_void_p) == 4 and gather_args.count(ctypes.c_longlong) == 2
     stamp_args, _ = build.ENTRY_POINTS["stamp"]["szg_stamp"]
-    assert stamp_args.count(ctypes.c_void_p) == 3 and len(stamp_args) == 8
+    assert stamp_args.count(ctypes.c_void_p) == 5 and len(stamp_args) == 10
     assert build.ENTRY_POINTS["stamp"]["szg_capture_nodes"][0] == [ctypes.c_void_p] * 2
     lighting_args, _ = build.ENTRY_POINTS["lighting"]["szg_lighting"]
     assert lighting_args.count(ctypes.c_void_p) == 18 and lighting_args.count(ctypes.c_longlong) == 1

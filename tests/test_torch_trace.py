@@ -6,10 +6,14 @@ frame marks its eight layers in frame order, the frames without the
 atmosphere or with the quirk-exact sky (``aerial_exact`` in place of
 ``aerial_lut``) mark theirs, the image is bitwise the
 frame without a recorder, a profiled frame shows a ``syzygy.<layer>``
-range per layer it runs, host stamps count no kernel launch, and the
+range per layer it runs and a ``syzygy.<layer>.<part>`` range per part,
+host stamps count no kernel launch, and the
 ring's reader keeps only the slots whose
 sequence number matches (wrap-around, half-written and stale slots on a
-made-up ring).
+made-up ring) and sums the parts' intervals and the counters' columns
+by name beside the layers'; the plain stamp copies a raster's tile-list
+counters after its mark; parts share a boundary stamp only where
+nothing is enqueued between them.
 
 The ``cuda``-marked tests run the stamps captured into the CUDA graph;
 they skip without a GPU. This file imports no JAX:
@@ -20,13 +24,14 @@ they skip without a GPU. This file imports no JAX:
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
 import torch
 
 from syzygy_tpu_torch.renderer import layers
-from syzygy_tpu_torch.renderer.layers import LAYERS, MARKS, FrameTrace, finished_replays, layer, recording
+from syzygy_tpu_torch.renderer.layers import LAYERS, MARKS, PARTS, FrameTrace, finished_replays, layer, recording
 
 SMALL = dict(width=256, height=128, shadow_dim=256, skyview_width=128, skyview_height=64)
 LUT_LAYERS = [name for name in LAYERS if name != "aerial_exact"]  # a frame of the default aerial LUT
@@ -82,8 +87,13 @@ def recorded(cpu_frame, small_ring):
 
 def test_frame_marks_every_layer_in_order(recorded):
     trace, _ = recorded
-    assert trace.ring.shape == (4, MARKS + 1)
+    assert trace.ring.shape[0] == 4
     assert trace.layers == LUT_LAYERS
+    # the ten slots' and the camera's parts fill the columns between the
+    # layer marks and the sequence number, each once
+    used = [c for _, a, b in trace.spans for c in (a, b)] + [c for _, c in trace.counter_columns]
+    assert sorted(set(used)) == list(range(MARKS, trace.ring.shape[1] - 1))
+    assert len(trace.spans) == 3 * 10 + 4 and len(trace.counter_columns) == 2 * 11
     slot = trace.ring[0].tolist()
     assert slot[-1] == 0 and int(trace.seq) == 1  # the last mark finished replay 0
     times = slot[: len(LUT_LAYERS) + 1]
@@ -126,7 +136,7 @@ def test_profiled_frame_shows_each_layer(cpu_frame):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         render_frame_eager(geometry, params, dataclasses.replace(config, render_atmosphere=False))
     names = {e.key for e in prof.key_averages() if e.key.startswith("syzygy.")}
-    assert names == {f"syzygy.{name}" for name in ("state", "shadow", "gbuffer", "lighting", "encode")}
+    assert names == {f"syzygy.{name}" for name in ("state", "shadow", "gbuffer", "lighting", "encode") + PARTS}
 
 
 def test_layers_out_of_place_and_nested_recordings_refuse(small_ring):
@@ -241,6 +251,101 @@ def test_reader_skips_half_written_and_stale_slots():
     ring[4 % 4, -1] = 0  # replay 4 never reached its slot: the device wrote replay 0 there
     host[3 % 4, 0] = 7  # a host record of another replay
     assert [r.seq for r in finished_replays(ring, names, host, 6)] == [2, 5]
+
+
+def test_reader_parses_parts_and_counters_beside_the_layers():
+    """A ring with part marks and counters after the layer marks: each
+    replay's ``parts_ms`` sums the intervals of each part (a part entered
+    twice, two parts sharing a boundary) and ``counters`` each counter's
+    columns, and the eight layers' ``layer_ms`` are those of the same ring
+    without them."""
+    rows, replays = 4, 6
+    ring, host = _made_up_ring(rows, replays, LUT_LAYERS)
+    wide = np.full((rows, MARKS + 11), -1, np.int64)
+    wide[:, :MARKS] = ring[:, :MARKS]
+    wide[:, -1] = ring[:, -1]
+    spans = [("shadow.setup", MARKS, MARKS + 1), ("shadow.bin", MARKS + 1, MARKS + 2),
+             ("shadow.setup", MARKS + 2, MARKS + 5), ("gbuffer.resolve", MARKS + 6, MARKS + 7)]
+    # the stamps at MARKS + 2 and MARKS + 7 copied a raster's counters after them
+    counters = [("raster_overflows", MARKS + 3), ("raster_pairs", MARKS + 4),
+                ("raster_overflows", MARKS + 8), ("raster_pairs", MARKS + 9)]
+    for s in range(replays):
+        times = 1_000_000 * s + np.array([0, 1000, 3000, 7000, 8000, 8500])
+        wide[s % rows, MARKS: MARKS + 10] = [*times[:3], s % 2, 100 + s, *times[3:], 1, 9000 + s]
+    plain = finished_replays(ring, LUT_LAYERS, host, replays)
+    got = finished_replays(wide, LUT_LAYERS, host, replays, spans, counters)
+    assert [r.seq for r in got] == [r.seq for r in plain] == [2, 3, 4, 5]
+    for r, p in zip(got, plain):
+        assert r.layer_ms == p.layer_ms and len(r.layer_ms) == 8
+        assert r.parts_ms == {"shadow.setup": (1000 + 4000) / 1e6, "shadow.bin": 2000 / 1e6,
+                              "gbuffer.resolve": 500 / 1e6}
+        assert r.counters == {"raster_overflows": r.seq % 2 + 1, "raster_pairs": 100 + r.seq + 9000 + r.seq}
+        assert p.parts_ms == {} and p.counters == {}
+    parts_only = finished_replays(wide, LUT_LAYERS, host, replays, spans[3:])
+    assert list(parts_only[0].parts_ms) == ["gbuffer.resolve"] and parts_only[0].counters == {}
+
+
+def test_plain_stamp_copies_a_rasters_counters_after_its_mark():
+    """``stamp_plain`` with a tile list's ``overflow`` and ``pairs``: the
+    time in the mark's column, the flag and the pairs in the two after it,
+    no other cell written; a stamp refuses one counter without the other,
+    counters of another type and counters past the sequence column."""
+    from syzygy_tpu_torch.kernels import stamp as st
+
+    ring = torch.full((2, 8), 7, dtype=torch.int64)
+    seq = torch.tensor(3, dtype=torch.int64)
+    st.stamp(ring, seq, 2, False, torch.tensor(True), torch.tensor([40], dtype=torch.int32), kind="part")
+    st.stamp(ring, seq, 5, False)
+    slot = ring[1]
+    assert slot[2] > 7 and slot[5] > 7 and slot[3:5].tolist() == [1, 40]
+    assert slot[[0, 1, 6, 7]].tolist() == [7] * 4 and bool((ring[0] == 7).all()) and int(seq) == 3
+    st.stamp(ring, seq, 4, False, torch.tensor(False), torch.tensor([0], dtype=torch.int32))
+    assert slot[5:7].tolist() == [0, 0]
+    with pytest.raises(ValueError, match="both"):
+        st.stamp(ring, seq, 2, False, torch.tensor(True), None)
+    with pytest.raises(ValueError, match="counter"):
+        st.stamp(ring, seq, 2, False, torch.tensor(1), torch.tensor([4], dtype=torch.int32))
+    with pytest.raises(ValueError, match="outside"):
+        st.stamp(ring, seq, 5, False, torch.tensor(True), torch.tensor([4], dtype=torch.int32))
+
+
+def test_parts_share_a_stamp_only_where_nothing_runs_between(small_ring, monkeypatch):
+    """A part opened where the last one closed shares its stamp while the
+    graph's node count stands still; where work was enqueued between (a
+    node count that grows) it takes a stamp of its own, so that work
+    counts in no part. A part outside its layer and a tally outside a part
+    refuse."""
+    from syzygy_tpu_torch.renderer.layers import part, tally
+
+    def spans(nodes):
+        trace = FrameTrace("cpu")
+        monkeypatch.setattr(trace, "_nodes", lambda: next(nodes))
+        with recording(trace):
+            with layer("state"):
+                pass
+            with layer("shadow"):
+                for name in ("shadow.setup", "shadow.bin", "shadow.raster", "shadow.setup"):
+                    with part(name):
+                        pass
+        return trace.spans, trace.nodes
+
+    still, _ = spans(iter([1] * 100))
+    assert still == [("shadow.setup", MARKS, MARKS + 1), ("shadow.bin", MARKS + 1, MARKS + 2),
+                     ("shadow.raster", MARKS + 2, MARKS + 3), ("shadow.setup", MARKS + 3, MARKS + 4)]
+    growing, nodes = spans(iter(range(100)))
+    assert growing == [(name, MARKS + 2 * i, MARKS + 2 * i + 1) for i, (name, _, _) in enumerate(still)]
+    assert nodes["part_stamps"] == 8 and nodes["stamps"] == 3
+    with pytest.raises(ValueError, match="out of place"):
+        with recording(FrameTrace("cpu")):
+            with layer("state"):
+                with part("shadow.setup"):
+                    pass
+    lists = types.SimpleNamespace(overflow=torch.tensor(False), offsets=torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="inside a part"):
+        with recording(FrameTrace("cpu")):
+            with layer("gbuffer"):
+                tally(lists)
+    tally(lists)  # no recorder: nothing to count
 
 
 # --------------------------------------------------------------------------
